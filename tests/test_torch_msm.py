@@ -1,0 +1,139 @@
+"""The port's G1 MSM (zikkurat_algebra_tpu_torch.ops.msm) against the JAX
+package's MSM stages and the oracle.
+
+Digits, signed digits and the level-2 carries are held against the JAX
+functions of the same name on the same inputs; one whole MSM is held
+against `msm_std` of the JAX package.  Projective values from the two
+packages may differ by the order of additions, so points are compared
+after `to_affine`.  The edge cases are held against the oracle alone.
+"""
+
+import random
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from zikkurat_algebra_tpu import params as JP
+from zikkurat_algebra_tpu.ops import msm as jmsm
+from zikkurat_algebra_tpu.ops.curve import get_curves
+from zikkurat_algebra_tpu_torch import params as P
+from zikkurat_algebra_tpu_torch.errors import DimensionError
+from zikkurat_algebra_tpu_torch.ops import msm
+from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def ck():
+    return CurveKernels(P.BLS12_381, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jck():
+    return get_curves(JP.BLS12_381)
+
+
+def rand_points(og, n, seed):
+    r = random.Random(seed)
+    return [og.scalar_mul(r.randrange(1, og.r), og.gen) for _ in range(n)]
+
+
+@pytest.mark.parametrize("c", [1, 5, 13, 15])
+def test_digits_vs_jax(ck, jck, c):
+    r = random.Random(c)
+    ks = [r.randrange(ck.fr.p) for _ in range(9)] + [0, ck.fr.p - 1]
+    nbits = ck.fr.p.bit_length()
+    got = msm.digits_from_limbs(ck.fr.encode(ks, mont=False), c, nbits)
+    want = jmsm.digits_from_limbs(jck.fr.encode(ks, mont=False), c, nbits)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    sgot = msm.signed_digits(got, c)
+    swant = jmsm.signed_digits(want, c)
+    assert np.array_equal(sgot.numpy(), np.asarray(swant))
+    for j, k in enumerate(ks):
+        assert sum(int(d) << (c * w) for w, d in enumerate(sgot[:, j])) == k
+
+
+def test_level2_carries_vs_jax(ck, jck):
+    """Carries and their landing buckets equal the JAX _level2_carries on
+    the same sorted digits (runs spanning up to all blocks) and trailers."""
+    og = ck.oracle_g1
+    wc, nblk, m, nbuckets = 3, 8, 4, 9
+    rng = np.random.default_rng(2)
+    steps = rng.choice([0, 0, 0, 0, 1], size=(wc, nblk * m))
+    steps[2] = 0                                   # one digit, all blocks
+    d = np.minimum(np.cumsum(steps, 1), nbuckets - 1).astype(np.int32)
+    d_blk = d.reshape(wc, nblk, m)
+    pool = rand_points(og, 6, 3)
+    pts = [pool[i] for i in rng.integers(0, 6, wc * nblk)]
+    S = ck.g1.from_affine(ck.encode_g1(pts))
+    S = tuple(s.reshape(ck.fp.W, wc, nblk) for s in S)
+    jS = jck.g1.from_affine(jck.encode_g1(pts))
+    jS = tuple(s.reshape(s.shape[0], wc, nblk) for s in jS)
+
+    C, cidx = msm._level2_carries(ck.g1, torch.from_numpy(d_blk[..., 0]),
+                                  torch.from_numpy(d_blk[..., -1]), S,
+                                  nbuckets)
+    jC, jcidx = jmsm._level2_carries(jck.g1, jnp.asarray(d_blk), jS,
+                                     nbuckets)
+    assert np.array_equal(cidx.numpy(), np.asarray(jcidx))
+    got = ck.decode_g1(ck.g1.to_affine(tuple(c.reshape(ck.fp.W, -1)
+                                             for c in C)))
+    want = jck.decode_g1(jck.g1.to_affine(tuple(
+        c.reshape(c.shape[0], -1) for c in jC)))
+    assert got == want
+
+
+def test_msm_std_vs_jax(ck, jck):
+    """The whole slice: the shape of tests/test_msm.py's BLS-33-5 case,
+    the JAX msm_std against the port's, compared after to_affine."""
+    og = ck.oracle_g1
+    n, c = 33, 5
+    pts = rand_points(og, n, 5)
+    r = random.Random(6)
+    ks = [r.randrange(og.r) for _ in range(n)]
+    pts[3], ks[1] = None, 0
+    jres = jck.msm("g1").msm_std(jck.fr.encode(ks, mont=False),
+                                 jck.encode_g1(pts), c)
+    want = jck.decode_g1(jck.g1.to_affine(jres))
+    res = ck.msm("g1").msm_std(ck.fr.encode(ks, mont=False),
+                               ck.encode_g1(pts), c, 16)
+    assert ck.decode_g1(ck.g1.to_affine(res)) == want == og.msm(ks, pts)
+    res2 = ck.msm("g1").msm_mont(ck.fr.encode(ks), ck.encode_g1(pts), c, 16)
+    assert ck.decode_g1(ck.g1.to_affine(res2)) == want
+
+
+@pytest.mark.parametrize("n,c,block", [
+    (1, None, 8),          # one point
+    (20, 3, 8),            # long segments spanning blocks, n % block != 0
+    (37, 4, 16),           # n not a multiple of the block
+])
+def test_msm_edge_cases_vs_oracle(ck, n, c, block):
+    og = ck.oracle_g1
+    pts = rand_points(og, n, 10 + n)
+    r = random.Random(n)
+    ks = [r.randrange(og.r) for _ in range(n)]
+    if n > 4:
+        pts[2] = None                               # infinity input
+        ks[4] = 0                                   # zero scalar
+        pts[5] = pts[6]                             # a repeated point
+    res = ck.msm("g1").msm_std(ck.fr.encode(ks, mont=False),
+                               ck.encode_g1(pts), c, block)
+    assert ck.decode_g1(ck.g1.to_affine(res)) == og.msm(ks, pts)
+
+
+def test_msm_zero_scalars_and_dimension_error(ck):
+    og = ck.oracle_g1
+    pts = rand_points(og, 4, 20)
+    A = ck.encode_g1(pts)
+    res = ck.msm("g1").msm_std(ck.fr.encode([0] * 4, mont=False), A, 2, 4)
+    assert ck.decode_g1(ck.g1.to_affine(res)) is None
+    with pytest.raises(DimensionError):
+        ck.msm("g1").msm_std(ck.fr.encode([1] * 3, mont=False), A, 2, 4)
+
+
+def test_window_size_matches_jax():
+    for n in (1, 2, 33, 1 << 10, 1 << 16, 1 << 20, 1 << 24):
+        assert msm.window_size(n) == jmsm.window_size(n)
