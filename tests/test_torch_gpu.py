@@ -1,5 +1,5 @@
-"""Kernels K1 and K2 on the card against their plain torch versions, and
-a small MSM on the card against the oracle.
+"""Kernels K1, K2, K3 and K4 on the card against their plain torch
+versions, and small G1 and G2 MSMs on the card against the oracle.
 
 Every test here is marked `gpu` and skips, from inside the `cuda_device`
 fixture, on a host without a CUDA card.  The file imports neither JAX nor
@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from zikkurat_algebra_tpu_torch import params as P
-from zikkurat_algebra_tpu_torch.ops import kernel_curve, kernel_field
+from zikkurat_algebra_tpu_torch.ops import (kernel_curve, kernel_field,
+                                            kernel_sort)
 from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
 from zikkurat_algebra_tpu_torch.ops.field import Field
 
@@ -30,11 +31,11 @@ def cuda_device():
     return "cuda"
 
 
-def make_scan_inputs(f, nwin, nblk, m, npts, nbuckets, seed):
-    """Random K2 inputs: per window row, sorted |digits| with long runs
-    (segments spanning blocks), random signs, distinct point indices, and
-    points of which some are at infinity.  Returns numpy arrays and the
-    coordinates as Python ints."""
+def make_scan_inputs(f, nwin, nblk, m, npts, nbuckets, seed, fp2=False):
+    """Random K2 (or, with fp2, K4) inputs: per window row, sorted |digits|
+    with long runs (segments spanning blocks), random signs, distinct
+    point indices, and points of which some are at infinity.  Returns
+    numpy arrays and the coordinates as Python ints (pairs for fp2)."""
     rng = np.random.default_rng(seed)
     n = nblk * m
     steps = rng.choice([0, 0, 0, 1, 2], size=(nwin, n))
@@ -47,6 +48,10 @@ def make_scan_inputs(f, nwin, nblk, m, npts, nbuckets, seed):
     ys = [(int(v) << 200 | int(v)) % f.p
           for v in rng.integers(0, 1 << 62, npts)]
     inf = rng.integers(0, 5, npts) == 0
+    if fp2:
+        xs, ys = ([(c, (int(v) << 120 | c) % f.p)
+                   for c, v in zip(cs, rng.integers(0, 1 << 62, npts))]
+                  for cs in (xs, ys))
     return xs, ys, inf, sd, idx.astype(np.int32)
 
 
@@ -111,4 +116,79 @@ def test_msm_on_card_vs_oracle(cuda_device):
     got = ck.decode_g1(ck.g1.to_affine(res))
     assert kernel_field.mont_mul.launches > k1
     assert kernel_curve.bucket_scan.launches == k2 + 1
+    assert got == og.msm(ks, pts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wc,n,R,key_bits", [
+    (3, 5000, 1, 15),      # n not a power of two, several tiles, 2 passes
+    (2, 2048, 3, 2),       # one tile, one pass, heavy duplication
+    (1, 70001, 2, 20),     # 3 passes, a ragged last tile
+])
+def test_sort_kernel_vs_plain(cuda_device, wc, n, R, key_bits):
+    """Kernel K3 equals its plain version exactly (it is stable, so the
+    payload order is determined), and its counter steps by one."""
+    g = np.random.default_rng(n)
+    keys = torch.from_numpy(
+        g.integers(0, 1 << key_bits, (wc, n)).astype(np.int32)).cuda()
+    pay = torch.from_numpy(
+        g.integers(-(1 << 31), 1 << 31, (R, wc, n)).astype(np.int32)).cuda()
+    before = kernel_sort.sort_key_val.launches
+    sk, sp = kernel_sort.sort_key_val(keys, pay, key_bits)
+    torch.cuda.synchronize()
+    assert kernel_sort.sort_key_val.launches == before + 1
+    wk, wp = kernel_sort.sort_key_val_plain(keys, pay)
+    assert torch.equal(sk, wk) and torch.equal(sp, wp)
+    with pytest.raises(ValueError):
+        kernel_sort.sort_key_val(keys, pay, key_bits - 1 if key_bits > 2
+                                 else 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve", [P.BLS12_381, P.BN128],
+                         ids=lambda c: c.name)
+def test_bucket_scan2_kernel_vs_plain(cuda_device, curve):
+    """Kernel K4 equals its plain version limb for limb over Fp2: buckets
+    and trailers, with sign, infinity and restart cases."""
+    ck = CurveKernels(curve, device=cuda_device)
+    tw = ck.tower
+    nwin, nblk, m, nbuckets = 3, 40, 16, 60
+    xs, ys, inf, sd, idx = make_scan_inputs(ck.fp, nwin, nblk, m, 700,
+                                            nbuckets, seed=11, fp2=True)
+    args = (tw.encode_fp2(xs), tw.encode_fp2(ys),
+            torch.from_numpy(inf).cuda(), torch.from_numpy(sd).cuda(),
+            torch.from_numpy(idx).cuda(), m, nbuckets)
+    before = kernel_curve.bucket_scan2.launches
+    k2_before = kernel_curve.bucket_scan.launches
+    got = kernel_curve.bucket_scan(ck.g2, *args)
+    torch.cuda.synchronize()
+    assert kernel_curve.bucket_scan2.launches == before + 1
+    assert kernel_curve.bucket_scan.launches == k2_before
+    want = kernel_curve.bucket_scan_plain(ck.g2.plain(), *args)
+    for g, w in zip(got, want):
+        for gc, wc in zip(g, w):
+            assert gc.shape == (ck.fp.W, 2) + gc.shape[2:]
+            assert torch.equal(gc, wc)
+
+
+@pytest.mark.gpu
+def test_msm_g2_on_card_vs_oracle(cuda_device):
+    """A small G2 MSM on the card goes through K1, K3 and K4 and equals
+    the oracle (infinity input, zero scalar, n not a block multiple)."""
+    ck = CurveKernels(P.BLS12_381, device=cuda_device)
+    og = ck.oracle_g2
+    r = random.Random(5)
+    n = 21
+    pts = [og.scalar_mul(r.randrange(1, og.r), og.gen) for _ in range(n)]
+    ks = [r.randrange(og.r) for _ in range(n)]
+    pts[3], ks[1] = None, 0
+    counts = (kernel_field.mont_mul.launches,
+              kernel_sort.sort_key_val.launches,
+              kernel_curve.bucket_scan2.launches)
+    res = ck.msm("g2").msm_std(ck.fr.encode(ks, mont=False),
+                               ck.encode_g2(pts), 5, 8)
+    got = ck.decode_g2(ck.g2.to_affine(res))
+    assert kernel_field.mont_mul.launches > counts[0]
+    assert kernel_sort.sort_key_val.launches == counts[1] + 1
+    assert kernel_curve.bucket_scan2.launches == counts[2] + 1
     assert got == og.msm(ks, pts)

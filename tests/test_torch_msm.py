@@ -1,11 +1,12 @@
-"""The port's G1 MSM (zikkurat_algebra_tpu_torch.ops.msm) against the JAX
-package's MSM stages and the oracle.
+"""The port's G1 and G2 MSMs (zikkurat_algebra_tpu_torch.ops.msm) against
+the JAX package's MSM stages and the oracle.
 
 Digits, signed digits and the level-2 carries are held against the JAX
-functions of the same name on the same inputs; one whole MSM is held
-against `msm_std` of the JAX package.  Projective values from the two
-packages may differ by the order of additions, so points are compared
-after `to_affine`.  The edge cases are held against the oracle alone.
+functions of the same name on the same inputs; one whole MSM of each
+group is held against `msm_std` of the JAX package.  Projective values
+from the two packages may differ by the order of additions, so points
+are compared after `to_affine`.  The edge cases are held against the
+oracle alone.
 """
 
 import random
@@ -19,7 +20,7 @@ from zikkurat_algebra_tpu import params as JP
 from zikkurat_algebra_tpu.ops import msm as jmsm
 from zikkurat_algebra_tpu.ops.curve import get_curves
 from zikkurat_algebra_tpu_torch import params as P
-from zikkurat_algebra_tpu_torch.errors import DimensionError
+from zikkurat_algebra_tpu_torch.errors import DimensionError, UnsupportedError
 from zikkurat_algebra_tpu_torch.ops import msm
 from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
 
@@ -137,3 +138,47 @@ def test_msm_zero_scalars_and_dimension_error(ck):
 def test_window_size_matches_jax():
     for n in (1, 2, 33, 1 << 10, 1 << 16, 1 << 20, 1 << 24):
         assert msm.window_size(n) == jmsm.window_size(n)
+
+
+def test_msm_g2_vs_jax(ck, jck):
+    """The G2 slice as a whole: the shape of tests/test_msm.py's G2 case
+    (n = 9, c = 4) with an infinity point, a zero scalar and n not a
+    multiple of the block, the JAX msm_std against the port's and the
+    oracle, compared after to_affine."""
+    og = ck.oracle_g2
+    n, c = 9, 4
+    pts = rand_points(og, n, 30)
+    r = random.Random(31)
+    ks = [r.randrange(og.r) for _ in range(n)]
+    pts[2], ks[4] = None, 0
+    jres = jck.msm("g2").msm_std(jck.fr.encode(ks, mont=False),
+                                 jck.encode_g2(pts), c)
+    want = jck.decode_g2(jck.g2.to_affine(jres))
+    res = ck.msm("g2").msm_std(ck.fr.encode(ks, mont=False),
+                               ck.encode_g2(pts), c, 4)
+    assert ck.decode_g2(ck.g2.to_affine(res)) == want == og.msm(ks, pts)
+
+
+def test_msm_g2_edge_cases_vs_oracle():
+    """BN128 G2 (b3 a full Fp2 value, W = 8): a repeated point, an
+    infinity point, a zero scalar, segments spanning blocks and n not a
+    multiple of the block, through msm_mont."""
+    ck = CurveKernels(P.BN128, device="cpu")
+    og = ck.oracle_g2
+    n = 7
+    pts = rand_points(og, n, 40)
+    r = random.Random(41)
+    ks = [r.randrange(og.r) for _ in range(n)]
+    pts[1], ks[3], pts[5] = None, 0, pts[6]
+    res = ck.msm("g2").msm_mont(ck.fr.encode(ks), ck.encode_g2(pts), 3, 2)
+    assert ck.decode_g2(ck.g2.to_affine(res)) == og.msm(ks, pts)
+
+
+def test_msm_group_names():
+    """G2 exists where the curve has a twist; BLS12-377 has none."""
+    with pytest.raises(UnsupportedError):
+        CurveKernels(P.BLS12_377, device="cpu").msm("g2")
+    ck = CurveKernels(P.BN128, device="cpu")
+    with pytest.raises(ValueError):
+        ck.msm("g3")
+    assert ck.msm("g2").ops is ck.g2 and ck.msm("g1").ops is ck.g1

@@ -1,7 +1,7 @@
 // Montgomery arithmetic in GF(p) on W radix-2^32 limbs held in registers.
 //
 // Shared by the kernels of this directory (mont_mul.cu inlines mont_mul,
-// block_scan.cu the whole file).  An element is uint32_t[W], least
+// block_scan.cu and block_scan2.cu the whole file).  An element is uint32_t[W], least
 // significant limb first, canonical in [0, p), in Montgomery form with
 // R = 2^(32 W).  In device memory elements are limb planes: limb i of
 // element e of a batch of n sits at index i * n + e, so the threads of a
@@ -11,6 +11,11 @@
 // 1996) with 64-bit accumulators, which the compiler lowers to IMAD.WIDE
 // and carry-chained IADD3, followed by ONE conditional subtraction: for
 // a, b < p the CIOS result is below 2p, so the output is canonical.
+//
+// The quadratic extension Fp2 = Fp[u] / (u^2 - qnr) is a pair of such
+// elements (struct Fp2).  In device memory an Fp2 batch is (W, 2, n):
+// limb i of component c of element e sits at (2 i + c) n + e, so a
+// component is a limb-plane batch with limb stride 2 n.
 
 #pragma once
 
@@ -183,6 +188,111 @@ __device__ __forceinline__ void scale_small(uint32_t (&r)[W],
     if ((k >> bit) & 1) add_mod<W>(acc, acc, a, p);
   }
   copy<W>(r, acc);
+}
+
+// ---- Fp2 = Fp[u] / (u^2 - qnr) -------------------------------------------
+
+template <int W>
+struct Fp2 {
+  uint32_t c0[W];
+  uint32_t c1[W];
+};
+
+// Element e of a (W, 2, n) batch.
+template <int W>
+__device__ __forceinline__ void load_fp2(Fp2<W>& r,
+                                         const int32_t* __restrict__ a,
+                                         long long e, long long n) {
+  load_limbs<W>(r.c0, a, e, 2 * n);
+  load_limbs<W>(r.c1, a + n, e, 2 * n);
+}
+
+template <int W>
+__device__ __forceinline__ void store_fp2(int32_t* __restrict__ a,
+                                          const Fp2<W>& r, long long e,
+                                          long long n) {
+  store_limbs<W>(a, r.c0, e, 2 * n);
+  store_limbs<W>(a + n, r.c1, e, 2 * n);
+}
+
+template <int W>
+__device__ __forceinline__ void f2_copy(Fp2<W>& r, const Fp2<W>& a) {
+  copy<W>(r.c0, a.c0);
+  copy<W>(r.c1, a.c1);
+}
+
+template <int W>
+__device__ __forceinline__ void f2_set_zero(Fp2<W>& r) {
+  set_zero<W>(r.c0);
+  set_zero<W>(r.c1);
+}
+
+template <int W>
+__device__ __forceinline__ void f2_add(Fp2<W>& r, const Fp2<W>& a,
+                                       const Fp2<W>& b,
+                                       const uint32_t (&p)[W]) {
+  add_mod<W>(r.c0, a.c0, b.c0, p);
+  add_mod<W>(r.c1, a.c1, b.c1, p);
+}
+
+template <int W>
+__device__ __forceinline__ void f2_sub(Fp2<W>& r, const Fp2<W>& a,
+                                       const Fp2<W>& b,
+                                       const uint32_t (&p)[W]) {
+  sub_mod<W>(r.c0, a.c0, b.c0, p);
+  sub_mod<W>(r.c1, a.c1, b.c1, p);
+}
+
+template <int W>
+__device__ __forceinline__ void f2_neg(Fp2<W>& r, const Fp2<W>& a,
+                                       const uint32_t (&p)[W]) {
+  neg_mod<W>(r.c0, a.c0, p);
+  neg_mod<W>(r.c1, a.c1, p);
+}
+
+template <int W>
+__device__ __forceinline__ void f2_scale_small(Fp2<W>& r, const Fp2<W>& a,
+                                               int k,
+                                               const uint32_t (&p)[W]) {
+  scale_small<W>(r.c0, a.c0, k, p);
+  scale_small<W>(r.c1, a.c1, k, p);
+}
+
+// r = qnr a for a base element a: a negation for qnr = -1, else |qnr| a
+// by additions, negated for qnr < 0.  r may alias a.
+template <int W>
+__device__ __forceinline__ void mul_nr(uint32_t (&r)[W],
+                                       const uint32_t (&a)[W], int qnr,
+                                       const uint32_t (&p)[W]) {
+  if (qnr == -1) {
+    neg_mod<W>(r, a, p);
+    return;
+  }
+  scale_small<W>(r, a, qnr < 0 ? -qnr : qnr, p);
+  if (qnr < 0) neg_mod<W>(r, r, p);
+}
+
+// r = a b, Karatsuba with three Montgomery products (the recipe of
+// ops/tower.py QuadExt.mul_list): t0 = a0 b0, t1 = a1 b1,
+// t2 = (a0 + a1)(b0 + b1); c0 = t0 + qnr t1, c1 = t2 - (t0 + t1).
+// r may alias a or b.  Not inlined: a caller that holds several Fp2
+// values (K4's madd) keeps them in its stack frame across the call, and
+// the product's CIOS temporaries get the registers (see block_scan2.cu).
+template <int W>
+__device__ __noinline__ void f2_mul(Fp2<W>& r, const Fp2<W>& a,
+                                       const Fp2<W>& b,
+                                       const uint32_t (&p)[W], uint32_t n0,
+                                       int qnr) {
+  uint32_t t0[W], t1[W], s[W], t[W];
+  mont_mul<W>(t0, a.c0, b.c0, p, n0);
+  mont_mul<W>(t1, a.c1, b.c1, p, n0);
+  add_mod<W>(s, a.c0, a.c1, p);
+  add_mod<W>(t, b.c0, b.c1, p);
+  mont_mul<W>(s, s, t, p, n0);                    // t2
+  add_mod<W>(t, t0, t1, p);
+  sub_mod<W>(r.c1, s, t, p);
+  mul_nr<W>(t1, t1, qnr, p);
+  add_mod<W>(r.c0, t0, t1, p);
 }
 
 }  // namespace zk

@@ -9,3 +9,7 @@ class ZikkuratError(ValueError):
 
 class DimensionError(ZikkuratError):
     """Array dimensions incompatible with the requested operation."""
+
+
+class UnsupportedError(ZikkuratError):
+    """The curve family does not support the requested group."""

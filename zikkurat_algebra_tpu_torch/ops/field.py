@@ -1,7 +1,7 @@
 """Batched Montgomery prime field on radix-2^32 limb planes.
 
 The torch counterpart of zikkurat_algebra_tpu/ops/field.py::Field,
-restricted to what the G1 MSM uses.  Elements are (W, *batch) int32
+restricted to what the MSMs use.  Elements are (W, *batch) int32
 planes (ops/limbs.py), canonical in [0, p), in Montgomery form with
 R = 2^(32 W).  Every product goes through `kernel_field.mont_mul`: kernel
 K1 for CUDA tensors, its plain version for CPU tensors.  `mul_list` stacks
@@ -37,6 +37,8 @@ def resolve_device(device) -> torch.device:
 
 class Field:
     """Montgomery-form GF(p) bound to one device."""
+
+    struct_ndim = 1            # leading axes of an element: the limbs
 
     def __init__(self, params: FieldParams, device="cuda"):
         self.params = params

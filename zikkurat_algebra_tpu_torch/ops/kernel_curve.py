@@ -1,4 +1,5 @@
-"""Kernel K2: level-1 bucket accumulation of the MSM, and its plain version.
+"""Kernels K2 (G1) and K4 (G2): level-1 bucket accumulation of the MSM, and
+their plain version.
 
 `bucket_scan` runs one lane per (window, block) of the sorted digit rows.
 Each lane streams through the m positions of its block and keeps a
@@ -17,13 +18,17 @@ the digit changes.  It writes only what the MSM reads afterwards:
 * the running value at each block's last position, the trailer S[w, blk]
   that the level-2 carries combine across blocks.
 
-Buckets that no tail writes stay at infinity.  On a CUDA tensor the
-wrapper launches the hand-written kernel of `csrc/block_scan.cu`; on a CPU
-tensor it runs `bucket_scan_plain`.
+Buckets that no tail writes stay at infinity.  `bucket_scan` dispatches
+on the coordinates' rank: Fp coordinates (W, npts) go to K2, Fp2
+coordinates (W, 2, npts) to K4 (`bucket_scan2`).  On a CUDA tensor each
+wrapper launches its hand-written kernel, `csrc/block_scan.cu` or
+`csrc/block_scan2.cu`; on a CPU tensor both run `bucket_scan_plain`, which
+works over either coordinate field.
 
-It replaces the Pallas kernel `_build_block_scan` / `block_madd_scan` of
-zikkurat_algebra_tpu/ops/pallas_curve.py, which streams a packed sort
-payload and writes every running value, because the TPU has no gather.
+They replace the Pallas kernels `_build_block_scan` / `block_madd_scan`
+and `_build_block_scan2` / `block_madd_scan2` of
+zikkurat_algebra_tpu/ops/pallas_curve.py, which stream a packed sort
+payload and write every running value, because the TPU has no gather.
 """
 
 from __future__ import annotations
@@ -37,13 +42,14 @@ from .curve import ProjCurveOps
 
 
 def _check(ops: ProjCurveOps, x, y, inf, sd, idx, m: int, nbuckets: int):
-    W = ops.f.W
+    elem = x.shape[:ops.f.struct_ndim]
+    want = (ops.f.W,) + (2,) * (ops.f.struct_ndim - 1)
     if x.dtype != torch.int32 or y.dtype != torch.int32:
         raise TypeError("bucket_scan: x and y are int32 limb planes")
-    if x.ndim != 2 or x.shape[0] != W or y.shape != x.shape:
+    if x.ndim != len(want) + 1 or elem != want or y.shape != x.shape:
         raise ValueError(f"bucket_scan: x {tuple(x.shape)}, y "
-                         f"{tuple(y.shape)}, want ({W}, npts)")
-    if inf.dtype != torch.bool or inf.shape != (x.shape[1],):
+                         f"{tuple(y.shape)}, want {want + ('npts',)}")
+    if inf.dtype != torch.bool or inf.shape != (x.shape[-1],):
         raise ValueError("bucket_scan: inf is a (npts,) bool mask")
     if sd.dtype != torch.int32 or idx.dtype != torch.int32:
         raise TypeError("bucket_scan: digits and indices are int32")
@@ -59,8 +65,8 @@ def _check(ops: ProjCurveOps, x, y, inf, sd, idx, m: int, nbuckets: int):
 
 def bucket_scan_plain(ops: ProjCurveOps, x, y, inf, sd, idx, m: int,
                       nbuckets: int):
-    """Plain torch version: a loop over the m block positions, each a
-    batched madd over all (window, block) lanes."""
+    """Plain torch version, over Fp or Fp2 coordinates: a loop over the m
+    block positions, each a batched madd over all (window, block) lanes."""
     f = ops.f
     nwin, n = sd.shape
     nblk = n // m
@@ -75,15 +81,15 @@ def bucket_scan_plain(ops: ProjCurveOps, x, y, inf, sd, idx, m: int,
     acc = ops.infinity((nwin, nblk))
     for j in range(m):
         i = ii[..., j]
-        py = y[:, i]
-        pt = (x[:, i], f.select(neg[..., j], f.neg(py), py), inf[i])
+        py = y[..., i]
+        pt = (x[..., i], f.select(neg[..., j], f.neg(py), py), inf[i])
         restart = (torch.ones_like(neg[..., 0]) if j == 0
                    else a[..., j] != a[..., j - 1])
         acc = ops.select(restart, ops.from_affine(pt), ops.madd(acc, pt))
         t = tail[..., j]
         wi, ai = rows[t], a[..., j][t]
         for b, v in zip(buckets, acc):
-            b[:, wi, ai] = v[:, t]
+            b[..., wi, ai] = v[..., t]
     return buckets, acc
 
 
@@ -94,17 +100,30 @@ _ARGTYPES = [ctypes.c_void_p] * 12 + [
 ]
 
 
+def _outputs(ops: ProjCurveOps, sd, m: int, nbuckets: int):
+    """Buckets at infinity and uninitialised trailers on sd's device."""
+    nwin, n = sd.shape
+    buckets = tuple(t.contiguous() for t in ops.infinity((nwin, nbuckets + 1)))
+    S = tuple(torch.empty(buckets[0].shape[:-1] + (n // m,), dtype=torch.int32,
+                          device=sd.device) for _ in range(3))
+    return buckets, S
+
+
 def bucket_scan(ops: ProjCurveOps, x, y, inf, sd, idx, m: int,
                 nbuckets: int):
     """Level-1 bucket accumulation.
 
-    x, y: (W, npts) canonical Montgomery affine coordinates; inf: (npts,)
-    bool; sd: (nwin, n) int32 signed digits in sorted order, grouped by
-    |digit| in 0..nbuckets along each row; idx: (nwin, n) int32 index of
-    the point at each sorted position; m: block length (n % m == 0).
+    x, y: (W, npts) Fp or (W, 2, npts) Fp2 canonical Montgomery affine
+    coordinates; inf: (npts,) bool; sd: (nwin, n) int32 signed digits in
+    sorted order, grouped by |digit| in 0..nbuckets along each row; idx:
+    (nwin, n) int32 index of the point at each sorted position; m: block
+    length (n % m == 0).
 
     Returns (buckets, S): buckets is a projective point of batch shape
-    (nwin, nbuckets + 1), S the block trailers of shape (nwin, n // m)."""
+    (nwin, nbuckets + 1), S the block trailers of shape (nwin, n // m).
+    Fp2 coordinates go to `bucket_scan2` (kernel K4)."""
+    if x.ndim == 3:
+        return bucket_scan2(ops, x, y, inf, sd, idx, m, nbuckets)
     _check(ops, x, y, inf, sd, idx, m, nbuckets)
     dev = sd.device
     if dev.type == "cpu":
@@ -116,11 +135,8 @@ def bucket_scan(ops: ProjCurveOps, x, y, inf, sd, idx, m: int,
         raise ValueError("bucket_scan: inputs must be contiguous")
     f = ops.f
     nwin, n = sd.shape
-    nblk = n // m
-    buckets = tuple(t.contiguous() for t in ops.infinity((nwin, nbuckets + 1)))
-    S = tuple(torch.empty((f.W, nwin, nblk), dtype=torch.int32, device=dev)
-              for _ in range(3))
-    if nwin * nblk == 0:
+    buckets, S = _outputs(ops, sd, m, nbuckets)
+    if nwin * n == 0:
         return buckets, S
     fn = build.load("block_scan", "zk_bucket_scan", _ARGTYPES)
     rc = fn(
@@ -135,3 +151,49 @@ def bucket_scan(ops: ProjCurveOps, x, y, inf, sd, idx, m: int,
 
 
 bucket_scan.launches = 0
+
+
+_ARGTYPES2 = [ctypes.c_void_p] * 12 + [
+    ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p,
+]
+
+
+def bucket_scan2(ops: ProjCurveOps, x, y, inf, sd, idx, m: int,
+                 nbuckets: int):
+    """`bucket_scan` over Fp2 coordinates x, y (W, 2, npts): kernel K4 on a
+    CUDA tensor, the plain version on a CPU tensor.  Buckets and trailers
+    are (W, 2, nwin, .) planes."""
+    _check(ops, x, y, inf, sd, idx, m, nbuckets)
+    if x.ndim != 3:
+        raise ValueError("bucket_scan2: x and y are (W, 2, npts) Fp2 planes")
+    dev = sd.device
+    if dev.type == "cpu":
+        return bucket_scan_plain(ops, x, y, inf, sd, idx, m, nbuckets)
+    if dev.type != "cuda":
+        raise ValueError(f"bucket_scan2: no kernel for device {dev}")
+    tensors = (x, y, inf, sd, idx)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("bucket_scan2: inputs must be contiguous")
+    f = ops.f
+    fp = f.base
+    nwin, n = sd.shape
+    buckets, S = _outputs(ops, sd, m, nbuckets)
+    if nwin * n == 0:
+        return buckets, S
+    b3 = f.const(ops.b3).contiguous()                       # (W, 2)
+    fn = build.load("block_scan2", "zk_bucket_scan2", _ARGTYPES2)
+    rc = fn(
+        *(t.data_ptr() for t in tensors + buckets + S + (fp.p32,)),
+        fp.n0, fp.one_limbs.data_ptr(), b3.data_ptr(), f.qnr, f.W, nwin, n,
+        x.shape[-1], m, nbuckets + 1,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"bucket_scan2 kernel launch failed: cudaError {rc}")
+    bucket_scan2.launches += 1
+    return buckets, S
+
+
+bucket_scan2.launches = 0

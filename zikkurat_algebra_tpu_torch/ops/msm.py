@@ -1,15 +1,19 @@
-"""Pippenger multi-scalar multiplication on G1.
+"""Pippenger multi-scalar multiplication on G1 and G2.
 
 The torch counterpart of zikkurat_algebra_tpu/ops/msm.py::MSM.msm_std and
-CurveMSM.msm_mont.  The stages, in order:
+CurveMSM.msm_mont.  Every stage is generic over the coordinate field: it
+reads `ops.f.struct_ndim` leading axes, one for Fp (G1), two for Fp2
+(G2).  The stages, in order:
 
 1. signed window digits (`digits_from_limbs`, `signed_digits`): c-bit
    windows made balanced, |digit| <= 2^(c-1), plus one carry window;
 2. padding to a multiple of the block with digit = nbuckets (a dump
    slot) and points at infinity;
-3. grouping: `torch.sort(stable=True)` of |digit| along each window row;
-4. level 1, kernel K2 (`kernel_curve.bucket_scan`): per-block running
-   mixed-add chains, written out at segment tails and block ends;
+3. grouping: kernel K3 (`kernel_sort.sort_key_val`), a stable sort of
+   |digit| along each window row carrying the position index;
+4. level 1, kernel K2 for G1 or K4 for G2 (`kernel_curve.bucket_scan`):
+   per-block running mixed-add chains, written out at segment tails and
+   block ends;
 5. level 2 (`_level2_carries`): the trailers of consecutive blocks that
    one digit spans are combined by a log-depth segmented scan;
 6. extraction: each carry is added into the bucket where its segment
@@ -32,6 +36,7 @@ from ..errors import DimensionError
 from . import limbs as lb
 from .curve import AffBatch, Point, ProjCurveOps
 from .kernel_curve import bucket_scan
+from .kernel_sort import sort_key_val
 
 
 def window_size(n: int) -> int:
@@ -73,9 +78,14 @@ def signed_digits(digits: torch.Tensor, c: int) -> torch.Tensor:
     return torch.stack(out)
 
 
+def _mid(ops: ProjCurveOps, P: Point) -> tuple:
+    """The batch axes of P's coordinates before the last one."""
+    return P[0].shape[ops.f.struct_ndim:-1]
+
+
 def _shift_in(P: Point, ops: ProjCurveOps, s: int) -> Point:
     """Move points s places along the last axis, infinity coming in."""
-    inf = ops.infinity(P[0].shape[1:-1] + (s,))
+    inf = ops.infinity(_mid(ops, P) + (s,))
     return tuple(torch.cat([i, p[..., :-s]], -1) for p, i in zip(P, inf))
 
 
@@ -110,7 +120,7 @@ def _tree_sum(ops: ProjCurveOps, P: Point) -> Point:
     while P[0].shape[-1] > 1:
         n = P[0].shape[-1]
         if n % 2:
-            inf = ops.infinity(P[0].shape[1:-1] + (1,))
+            inf = ops.infinity(_mid(ops, P) + (1,))
             P = tuple(torch.cat([p, i], -1) for p, i in zip(P, inf))
             n += 1
         h = n // 2
@@ -128,7 +138,8 @@ def _wsum_bits(ops: ProjCurveOps, T: Point, start: int) -> Point:
     mask = ((w[None] >> bits[:, None]) & 1).bool()              # (nb, L)
     shape = T[0].shape[:-1] + (nb, L)
     Tx = tuple(t.unsqueeze(-2).expand(shape) for t in T)
-    U = _tree_sum(ops, ops.select(mask, Tx, ops.infinity(shape[1:])))
+    inf = ops.infinity(shape[ops.f.struct_ndim:])
+    U = _tree_sum(ops, ops.select(mask, Tx, inf))
     acc = tuple(u[..., nb - 1] for u in U)
     for i in range(nb - 2, -1, -1):
         acc = ops.add(ops.dbl(acc), tuple(u[..., i] for u in U))
@@ -147,7 +158,7 @@ def _weighted_bucket_sum(ops: ProjCurveOps, S: Point) -> Point:
     M = 1 << k
     H = -(-B // M)
     if H * M != B:
-        inf = ops.infinity(S[0].shape[1:-1] + (H * M - B,))
+        inf = ops.infinity(_mid(ops, S) + (H * M - B,))
         S = tuple(torch.cat([s, i], -1) for s, i in zip(S, inf))
     G = tuple(s.reshape(s.shape[:-1] + (H, M)) for s in S)
     R = _tree_sum(ops, G)
@@ -177,11 +188,22 @@ class _Stages:
 
 
 class MSM:
-    """Pippenger MSM bound to one curve group."""
+    """Pippenger MSM bound to one curve group (G1 or G2)."""
 
     def __init__(self, ops: ProjCurveOps, nbits: int):
         self.ops = ops
         self.nbits = nbits
+
+    def digits(self, k_limbs: torch.Tensor, c: int, block: int):
+        """Stages 1-2 for the scalars: signed digits (nwin, n) padded to a
+        multiple of the block with the dump key nbuckets."""
+        nbuckets = (1 << (c - 1)) + 1
+        sdig = signed_digits(digits_from_limbs(k_limbs, c, self.nbits), c)
+        pad = (-sdig.shape[1]) % block
+        if pad:
+            sdig = torch.cat(
+                [sdig, sdig.new_full((sdig.shape[0], pad), nbuckets)], 1)
+        return sdig
 
     def group(self, k_limbs: torch.Tensor, points: AffBatch,
               c: Optional[int] = None, block: int = 512,
@@ -189,7 +211,7 @@ class MSM:
         """Stages 1-3: signed digits, padding and the grouping sort.
         Returns (c, nbuckets, (x, y, inf), sd, idx): the padded points and
         the sorted signed digits with the index of each position's point,
-        which is what kernel K2 takes."""
+        which is what kernels K2 and K4 take."""
         n = k_limbs.shape[-1]
         if points[0].shape[-1] != n or points[1].shape[-1] != n:
             raise DimensionError(
@@ -202,28 +224,32 @@ class MSM:
             c = window_size(n)
         st = _Stages(stage_seconds, k_limbs.device)
         nbuckets = (1 << (c - 1)) + 1
-        sdig = signed_digits(digits_from_limbs(k_limbs, c, self.nbits), c)
-        nwin = sdig.shape[0]
+        sdig = self.digits(k_limbs, c, block)
         x, y, inf = points
-        pad = (-n) % block
+        pad = sdig.shape[1] - n
         if pad:
-            sdig = torch.cat([sdig, sdig.new_full((nwin, pad), nbuckets)], 1)
-            x = torch.cat([x, x.new_zeros((x.shape[0], pad))], 1)
-            y = torch.cat([y, y.new_zeros((y.shape[0], pad))], 1)
+            x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], -1)
+            y = torch.cat([y, y.new_zeros(y.shape[:-1] + (pad,))], -1)
             inf = torch.cat([inf, inf.new_ones(pad)])
         st.mark("digits")
 
-        _, idx = torch.sort(sdig.abs(), dim=1, stable=True)
-        sd = torch.gather(sdig, 1, idx)
+        # K3 sorts |digit| along each row, carrying the position index
+        nwin, npad = sdig.shape
+        pos = torch.arange(npad, dtype=torch.int32, device=sdig.device)
+        _, (idx,) = sort_key_val(sdig.abs(),
+                                 pos.expand(1, nwin, npad).contiguous(),
+                                 nbuckets.bit_length())
+        sd = torch.gather(sdig, 1, idx.long())
         st.mark("sort")
         pts = (x.contiguous(), y.contiguous(), inf.contiguous())
-        return c, nbuckets, pts, sd, idx.to(torch.int32)
+        return c, nbuckets, pts, sd, idx
 
     def msm_std(self, k_limbs: torch.Tensor, points: AffBatch,
                 c: Optional[int] = None, block: int = 512,
                 stage_seconds: Optional[Dict[str, float]] = None) -> Point:
         """sum_i k_i P_i for canonical standard-rep scalar limbs (Wr, N)
-        and affine points (x, y, inf); returns one projective point.
+        and affine points (x, y, inf), x and y (W, N) over Fp or
+        (W, 2, N) over Fp2; returns one projective point.
         `stage_seconds`, when given, collects each stage's wall time."""
         ops = self.ops
         c, nbuckets, (x, y, inf), sd, idx = self.group(
@@ -239,9 +265,9 @@ class MSM:
         st.mark("level2")
 
         rows = torch.arange(nwin, device=cidx.device)[:, None]
-        fixed = ops.add(tuple(b[:, rows, cidx] for b in buckets), C)
+        fixed = ops.add(tuple(b[..., rows, cidx] for b in buckets), C)
         for b, v in zip(buckets, fixed):
-            b[:, rows, cidx] = v
+            b[..., rows, cidx] = v
         buckets = tuple(b[..., 1:nbuckets] for b in buckets)
         st.mark("extraction")
 

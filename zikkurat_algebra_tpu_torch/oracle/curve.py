@@ -1,4 +1,6 @@
-"""Affine short-Weierstrass group law on Python ints (G1 only).
+"""Affine short-Weierstrass group law on Python ints, generic over the
+coordinate field: Fp (`oracle.field.Fp`, ints) for G1 and Fp2
+(`oracle.ext.Fp2Field`, pairs of ints) for G2.
 
 Points at infinity are `None`.  Branchy and slow: this is the reference
 that the batched projective formulas and the MSM are checked against.
@@ -8,13 +10,14 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
-AffinePoint = Optional[Tuple[int, int]]
+AffinePoint = Optional[Tuple]      # (x, y) over the coordinate field
 
 
 class CurveGroup:
-    """y^2 = x^3 + a x + b over `field`, scalar field order `r`."""
+    """y^2 = x^3 + a x + b over `field`, scalar field order `r`; a and b
+    are elements of `field`."""
 
-    def __init__(self, field, a: int, b: int, r: int, gen: AffinePoint,
+    def __init__(self, field, a, b, r: int, gen: AffinePoint,
                  cofactor: int = 1):
         self.f = field
         self.a = a

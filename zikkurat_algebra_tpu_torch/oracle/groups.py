@@ -1,4 +1,4 @@
-"""The oracle G1 group of a curve family."""
+"""The oracle G1 and G2 groups of a curve family."""
 
 from __future__ import annotations
 
@@ -6,6 +6,7 @@ from functools import lru_cache
 
 from ..params import CurveParams
 from .curve import CurveGroup
+from .ext import Fp2Field
 from .field import Fp
 
 
@@ -18,4 +19,23 @@ def g1_group(curve: CurveParams) -> CurveGroup:
         r=curve.fr.p,
         gen=curve.g1_gen,
         cofactor=curve.cofactor,
+    )
+
+
+@lru_cache(maxsize=None)
+def fp2_field(curve: CurveParams) -> Fp2Field:
+    return Fp2Field(Fp(curve.fp), curve.tower.qnr)
+
+
+@lru_cache(maxsize=None)
+def g2_group(curve: CurveParams) -> CurveGroup:
+    """G2 on the twist y^2 = x^3 + b2 over Fp2 (curve.b2 must be set)."""
+    f2 = fp2_field(curve)
+    return CurveGroup(
+        field=f2,
+        a=f2.zero,
+        b=f2.from_ints(*curve.b2),
+        r=curve.fr.p,
+        gen=(f2.from_ints(*curve.g2_gen[0]), f2.from_ints(*curve.g2_gen[1])),
+        cofactor=curve.g2_cofactor,
     )

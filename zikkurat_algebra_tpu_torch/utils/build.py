@@ -76,16 +76,20 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     for n in todo:
         tmp = lib_path(n).with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, time.time())
+        with open(log_path(n), "w") as out:     # nvcc's output goes to the log
+            procs[n] = (subprocess.Popen(cmd, stdout=out,
+                                         stderr=subprocess.STDOUT),
+                        tmp, time.time())
+    while any(not secs[n] for n in todo):
+        for n, (proc, _, t0) in procs.items():
+            if not secs[n] and proc.poll() is not None:
+                secs[n] = time.time() - t0
+        time.sleep(0.05)
     failed = []
-    for n, (proc, tmp, t0) in procs.items():
-        out, _ = proc.communicate()
-        secs[n] = time.time() - t0
-        log_path(n).write_text(out)
+    for n, (proc, tmp, _) in procs.items():
         if proc.returncode != 0:
-            failed.append(f"{n}: nvcc exit {proc.returncode}\n{out}")
+            failed.append(f"{n}: nvcc exit {proc.returncode}\n"
+                          f"{log_path(n).read_text()}")
             continue
         os.replace(tmp, lib_path(n))
     if failed:

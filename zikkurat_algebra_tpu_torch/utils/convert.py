@@ -4,8 +4,10 @@ The JAX package stores a field element as L signed radix-2^15 limbs
 (L = ceil(bits / 15) + 2), possibly lazy (any value congruent mod p), in
 Montgomery form with R' = 2^(15 L).  The port stores W radix-2^32 limbs,
 canonical, with R = 2^(32 W).  These functions go through the integer
-value: they remove one Montgomery factor and apply the other.  They work
-on numpy arrays, so both packages can read what they return.
+value: they remove one Montgomery factor and apply the other.  They keep
+every axis after the limb axis, so an Fp2 batch, JAX (L, 2, N), becomes
+the port's (W, 2, N) and back.  They work on numpy arrays, so both
+packages can read what they return.
 """
 
 from __future__ import annotations
@@ -47,33 +49,39 @@ def ints_to_limbs15(values: Sequence[int], L: int) -> np.ndarray:
 
 
 def from_jax_limbs15(planes, field, mont: bool = True) -> np.ndarray:
-    """JAX (L, N) planes of GF(p) -> the port's (W, N) int32 limbs of the
-    same field element; `mont` says both are in Montgomery form."""
+    """JAX (L, *batch) planes of GF(p) -> the port's (W, *batch) int32
+    limbs of the same field elements; `mont` says both are in Montgomery
+    form."""
+    planes = np.asarray(planes)
     p = field.p
     vals = [v % p for v in limbs15_to_ints(planes)]
     if mont:
-        r15_inv = pow(1 << (LB15 * np.asarray(planes).shape[0]), -1, p)
+        r15_inv = pow(1 << (LB15 * planes.shape[0]), -1, p)
         vals = [v * r15_inv % p * field.R % p for v in vals]
-    return lb.ints_to_limbs(vals, field.W)
+    return lb.ints_to_limbs(vals, field.W).reshape(
+        (field.W,) + planes.shape[1:])
 
 
 def to_jax_limbs15(limbs, field, mont: bool = True) -> np.ndarray:
-    """The port's (W, N) limbs -> canonical JAX (L, N) radix-2^15 planes."""
+    """The port's (W, *batch) limbs -> canonical JAX (L, *batch) radix-2^15
+    planes."""
     p = field.p
+    batch = tuple(limbs.shape[1:])
     vals = lb.limbs_to_ints(limbs)
     if isinstance(vals, int):
-        vals = [vals]
+        vals, batch = [vals], (1,)
     L = nlimbs15(p)
     if mont:
         r15 = 1 << (LB15 * L)
         vals = [v * field.R_inv % p * r15 % p for v in vals]
-    return ints_to_limbs15(vals, L)
+    return ints_to_limbs15(vals, L).reshape((L,) + batch)
 
 
 def load_jax_seed_points(npz_path, fp):
-    """A `bench_data/seeds_*_g1.npz` file of the JAX package (x and y as
-    (L, N) Montgomery planes, inf as (N,) bool) -> port G1 affine points
-    (x, y, inf) as tensors on `fp.device`."""
+    """A `bench_data/seeds_*_g1.npz` or `seeds_*_g2.npz` file of the JAX
+    package (x and y as (L, N) or, for G2, (L, 2, N) Montgomery planes;
+    inf as (N,) bool) -> port affine points (x, y, inf) as tensors on
+    `fp.device`, x and y (W, N) or (W, 2, N)."""
     with np.load(npz_path) as z:
         x, y, inf = z["x"], z["y"], z["inf"]
     dev = fp.device
