@@ -4,9 +4,10 @@
 
 The main paths are the BLS12-381 G2 and G1 Pippenger MSMs of 2^20 points
 (zikkurat_algebra_tpu_torch, `CurveKernels(...).msm(grp).msm_std`, c from
-`window_size`, block 512).  The script
+`window_size`, block 512), and the BLS12-381 Fr NTT, polynomial and group
+FFT path (`NTTDomain`, `PolyOps`, `GroupFFT`).  The script
 
-1. prints the card and its power limit, builds the four CUDA kernels from
+1. prints the card and its power limit, builds the five CUDA kernels from
    the sources in this checkout (one nvcc per source, in parallel) and
    prints the registers and spills `-Xptxas -v` reports;
 2. holds kernel K1 (Montgomery product) against its plain torch version
@@ -27,7 +28,20 @@ The main paths are the BLS12-381 G2 and G1 Pippenger MSMs of 2^20 points
       device memory;
 4. G1 path, the same on bench_data/seeds_BLS12_381_g1.npz: K2 against its
    plain version on all windows, then the MSM (K1, K2 and K3 must be
-   launched).
+   launched);
+5. NTT path, BLS12-381 Fr at 2^20:
+   a. K5 (NTT butterfly stage): one full radix-2 NTT of random inputs
+      through the kernel and through its plain version, every stage
+      equal limb for limb; times per stage and per NTT;
+   b. `NTTDomain.ntt`, `intt` and four-step `ntt`: table build timed
+      apart, intt(ntt(x)) == x, four-step equal to radix-2, three outputs
+      against sum_j x_j g^(j k) in Python ints, launches per transform
+      (K1 and K5 must be > 0), three timed calls each;
+   c. polynomials: `mul_ntt` of two 2^19-coefficient polynomials checked
+      at a random point, `eval_at` and `quot_by_vanishing` (the KZG
+      opening's steps) against Python Horner evaluations;
+   d. group FFT over G1 at 2^14 (the seeds tiled): `fft` at two outputs
+      against `msm_std` with scalars w^(j k), ifft(fft(P)) == P.
 
 It imports torch, numpy and the port, never JAX.  It fails (nonzero exit,
 no result line) without a CUDA card, outside a checkout, or when any
@@ -53,6 +67,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 IMAD_PER_CLOCK_PER_SM = 64         # compute capability 9.0, 32-bit multiply-add
 KERNELS = {                        # name -> (build source, TPU kernel replaced)
     "mont_mul": ("mont_mul", "zikkurat_algebra_tpu/ops/pallas_field.py:94"),
+    "ntt_stage": ("ntt_stage",
+                  "zikkurat_algebra_tpu/ops/pallas_field.py:125"),
     "bucket_scan": ("block_scan",
                     "zikkurat_algebra_tpu/ops/pallas_curve.py:241"),
     "bucket_scan2": ("block_scan2",
@@ -325,12 +341,30 @@ def phase_scan(ck, grp, k_limbs, pts, int_rate, device, m, windows=None):
 
 def counters():
     from zikkurat_algebra_tpu_torch.ops import (kernel_curve, kernel_field,
-                                                kernel_sort)
+                                                kernel_ntt, kernel_sort)
 
     return {"mont_mul": kernel_field.mont_mul,
+            "ntt_stage": kernel_ntt.ntt_stage,
             "bucket_scan": kernel_curve.bucket_scan,
             "bucket_scan2": kernel_curve.bucket_scan2,
             "sort_key_val": kernel_sort.sort_key_val}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts(device, path, need):
+    """The launch counts since `reset_counts`; each kernel in `need` must
+    have been launched (on a card)."""
+    launches = {name: fn.launches for name, fn in counters().items()}
+    log(f"# launches on the {path} path: {json.dumps(launches)}")
+    for name in need:
+        if launches[name] == 0 and device.type == "cuda":
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{path} path")
+    return launches
 
 
 def phase_msm(ck, grp, k_np, pts, seeds_aff, nseed, device, block, need):
@@ -361,15 +395,13 @@ def phase_msm(ck, grp, k_np, pts, seeds_aff, nseed, device, block, need):
     cols = k_np.view(np.uint32).astype(np.uint64).reshape(
         k_np.shape[0], n // nseed, nseed).sum(1)
     folded = [v % og.r for v in limbs_to_ints(cols_to_limbs(cols))]
-    cnt = counters()
-    for fn in cnt.values():
-        fn.launches = 0
+    reset_counts()
     t = time.perf_counter()
     res = msm.msm_std(k_limbs, pts, None, block)
     aff = ops.to_affine(res)
     sync(device)
     first_s = time.perf_counter() - t
-    launches = {name: fn.launches for name, fn in cnt.items()}
+    launches = read_counts(device, f"{grp} MSM + to_affine", need)
     t = time.perf_counter()
     want = og.msm(folded, seeds)
     oracle_s = time.perf_counter() - t
@@ -379,11 +411,6 @@ def phase_msm(ck, grp, k_np, pts, seeds_aff, nseed, device, block, need):
     log(f"# {grp} MSM check (b): full 2^{n.bit_length() - 1} MSM equals the "
         f"oracle MSM of the {nseed} seeds with folded scalars "
         f"({first_s:.2f} s incl. to_affine; oracle {oracle_s:.1f} s)")
-    log(f"# launches in that {grp} MSM + to_affine: {json.dumps(launches)}")
-    for name in need:
-        if launches[name] == 0 and device.type == "cuda":
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"{grp} path")
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -408,6 +435,205 @@ def phase_msm(ck, grp, k_np, pts, seeds_aff, nseed, device, block, need):
     log(f"# {grp} stage ms (mean of 3): " + ", ".join(
         f"{k} {v * 1e3 / runs:.2f}" for k, v in stages.items()))
     return launches
+
+
+def horner(coeffs, z: int, p: int) -> int:
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * z + c) % p
+    return acc
+
+
+def phase_k5(device, log_n, int_rate, rng):
+    """K5 over one full radix-2 NTT of 2^log_n random Fr elements against
+    its plain version, stage by stage; times per stage and per NTT."""
+    import torch
+    from zikkurat_algebra_tpu_torch import params as P
+    from zikkurat_algebra_tpu_torch.ops import kernel_ntt
+    from zikkurat_algebra_tpu_torch.ops.field import Field
+    from zikkurat_algebra_tpu_torch.ops.ntt import NTTDomain
+
+    f = Field(P.BLS12_381_FR, device)
+    n = 1 << log_n
+    dom = NTTDomain(f, log_n)
+    tables = dom.tables()
+    x = torch.from_numpy(rand_canonical(rng, f.p, f.W, n)).to(device)
+    y0 = x.index_select(1, dom.perm()).reshape(f.W, 1, n, 1).contiguous()
+    yk, yp = y0.clone(), y0.clone()
+    err = 0
+    for s, tw in enumerate(tables, 1):
+        kernel_ntt.ntt_stage(yk, tw, s, f)
+        kernel_ntt.ntt_stage_plain(yp, tw, s, f)
+        err = max(err, max_limb_diff(yk, yp))
+        if err:
+            raise AssertionError(f"K5 differs from its plain version at "
+                                 f"stage {s}: max |limb diff| {err}")
+    buf = y0.clone()
+    stage_ms = [time_ms(lambda: kernel_ntt.ntt_stage(buf, tw, s, f), 20,
+                        device) for s, tw in enumerate(tables, 1)]
+
+    def plain_ntt():
+        for s, tw in enumerate(tables, 1):
+            kernel_ntt.ntt_stage_plain(buf, tw, s, f)
+
+    plain_ms = time_ms(plain_ntt, 1, device) / log_n
+    ms = sum(stage_ms) / log_n
+    # per stage: x read and written once, the table read once; one
+    # Montgomery product (4 W^2 + W multiply-adds) per pair
+    nbytes = [2 * 4 * f.W * n + 4 * f.W * (1 << (s - 1))
+              for s in range(1, log_n + 1)]
+    nops = (n // 2) * (4 * f.W * f.W + f.W)
+    bounds = [bound(b, nops, int_rate) for b in nbytes]
+    b_ms = sum(b for b, _ in bounds) / log_n
+    b_by = bounds[-1][1]
+    t_bytes = sum(nbytes) / log_n / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / int_rate * 1e3
+    log(f"# K5 ntt_stage BLS12-381/Fr n=2^{log_n}: all {log_n} stages equal "
+        f"to plain; kernel {ms:.4f} ms per stage, {sum(stage_ms):.3f} ms "
+        f"per NTT; plain {plain_ms:.3f} ms per stage; bound {b_ms:.4f} ms "
+        f"per stage, {b_ms * log_n:.3f} ms per NTT ({b_by}: bytes "
+        f"{t_bytes:.4f} ms, operations {t_ops:.4f} ms per stage; "
+        f"{nops} IMAD per stage)")
+    log("# K5 ms by stage: " + ", ".join(f"{v:.4f}" for v in stage_ms))
+    return dict(ms=ms, ms_per_ntt=sum(stage_ms), stage_ms=stage_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_ms_per_ntt=b_ms * log_n, bytes_ms=t_bytes,
+                operations_ms=t_ops, library_ms=None, max_abs_err=err,
+                shape=f"(8, 1, 2^{log_n}, 1) BLS12-381/Fr, one stage")
+
+
+def phase_ntt(device, log_n, rng):
+    """NTTDomain at 2^log_n: tables, checks, launches, timings."""
+    import torch
+    from zikkurat_algebra_tpu_torch import params as P
+    from zikkurat_algebra_tpu_torch.ops.field import Field
+    from zikkurat_algebra_tpu_torch.ops.ntt import NTTDomain
+
+    f = Field(P.BLS12_381_FR, device)
+    n = 1 << log_n
+    dom, four = NTTDomain(f, log_n), NTTDomain(f, log_n, four_step=True)
+    _, tab_ms = timed(dom.prepare, device)
+    _, tab4_ms = timed(four.prepare, device)
+    log(f"# NTT 2^{log_n} tables: radix-2 {tab_ms:.1f} ms, four-step "
+        f"{tab4_ms:.1f} ms (both directions)")
+    x = torch.from_numpy(rand_canonical(rng, f.p, f.W, n)).to(device)
+    per = {}
+
+    def counted(name, fn, arg):
+        before = {k: c.launches for k, c in counters().items()}
+        out = fn(arg)
+        sync(device)
+        per[name] = {k: c.launches - before[k] for k, c in counters().items()
+                     if c.launches != before[k]}
+        return out
+
+    reset_counts()
+    y = counted("ntt", dom.ntt, x)
+    back = counted("intt", dom.intt, y)
+    y4 = counted("four-step ntt", four.ntt, x)
+    launches = read_counts(device, "NTT", ("mont_mul", "ntt_stage"))
+    log(f"# NTT launches per transform: {json.dumps(per)}")
+    if not torch.equal(back, x):
+        raise AssertionError("intt(ntt(x)) != x")
+    if not torch.equal(y4, y):
+        raise AssertionError("four-step NTT differs from radix-2")
+    k3 = int(rng.integers(2, n))
+    xs = f.decode(x)
+    got = f.decode(y[:, [0, 1, k3]])
+    for k, g in zip((0, 1, k3), got):
+        w, acc, tot = pow(dom.gen, k, f.p), 1, 0
+        for v in xs:
+            tot += v * acc
+            acc = acc * w % f.p
+        if tot % f.p != g:
+            raise AssertionError(f"NTT output {k} differs from the sum")
+    log(f"# NTT checks: intt(ntt(x)) == x, four-step == radix-2 limb for "
+        f"limb, outputs 0, 1, {k3} equal sum_j x_j g^(j k)")
+    times = {name: time_ms(fn, 3, device) for name, fn in (
+        ("ntt", lambda: dom.ntt(x)), ("intt", lambda: dom.intt(x)),
+        ("four-step ntt", lambda: four.ntt(x)))}
+    log(f"# NTT 2^{log_n} ms (mean of 3): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in times.items()))
+    return launches, dict(tables_ms=tab_ms, four_tables_ms=tab4_ms,
+                          per_transform=per, ms=times)
+
+
+def phase_poly(device, log_n, rng):
+    """mul_ntt of two 2^(log_n - 1)-coefficient polynomials, eval_at and
+    quot_by_vanishing on 2^log_n coefficients, against Python ints."""
+    import torch
+    from zikkurat_algebra_tpu_torch import params as P
+    from zikkurat_algebra_tpu_torch.ops.field import Field
+    from zikkurat_algebra_tpu_torch.ops.poly import get_poly_ops
+
+    f = Field(P.BLS12_381_FR, device)
+    po = get_poly_ops(f)
+    n = 1 << log_n
+    a, b, pp = (torch.from_numpy(rand_canonical(rng, f.p, f.W, k)).to(device)
+                for k in (n // 2, n // 2, n))
+    z, x0 = (int.from_bytes(rng.bytes(40), "little") % f.p for _ in range(2))
+    po.mul_ntt(a, b)                            # builds the 2^log_n tables
+    reset_counts()
+    c, mul_ms = timed(lambda: po.mul_ntt(a, b), device)
+    y0, eval_ms = timed(lambda: po.eval_at(f.encode(x0), pp), device)
+    (q, ok), quot_ms = timed(lambda: po.quot_by_vanishing(
+        po.sub(pp, y0.view(f.W, 1)), 1, f.encode(x0)), device)
+    launches = read_counts(device, "polynomial", ("mont_mul", "ntt_stage"))
+    av, bv, cv, pv, qv = (f.decode(t) for t in (a, b, c, pp, q))
+    if len(cv) != n - 1 or horner(cv, z, f.p) != horner(av, z, f.p) * \
+            horner(bv, z, f.p) % f.p:
+        raise AssertionError("mul_ntt: A(z) B(z) != C(z)")
+    p_x0 = horner(pv, x0, f.p)
+    if f.decode(y0) != p_x0:
+        raise AssertionError("eval_at differs from Horner")
+    if not bool(ok) or (horner(qv, z, f.p) * (z - x0) + p_x0) % f.p != \
+            horner(pv, z, f.p):
+        raise AssertionError("quot_by_vanishing: q(z)(z - x0) + y0 != P(z)")
+    times = {"mul_ntt": mul_ms, "eval_at": eval_ms,
+             "quot_by_vanishing": quot_ms}
+    log(f"# poly checks at 2^{log_n}: mul_ntt at a random point, eval_at, "
+        f"quot_by_vanishing exact and q(z)(z - x0) + y0 = P(z); ms: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in times.items()))
+    return launches, times
+
+
+def phase_gfft(ck, device, log_n, block, rng):
+    """GroupFFT over G1 at 2^log_n on the tiled seeds: two outputs of
+    fft against msm_std with scalars w^(j k); ifft(fft(P)) == P."""
+    import torch
+    from zikkurat_algebra_tpu_torch import params as P
+    from zikkurat_algebra_tpu_torch.ops.gfft import get_group_fft
+
+    ops = ck.g1
+    n = 1 << log_n
+    _, _, aff = tiled_seeds(ck, "g1", n, device)
+    g = get_group_fft(ops, P.BLS12_381_FR, log_n)
+    reset_counts()
+    F, fft_ms = timed(lambda: g.fft(ops.from_affine(aff)), device)
+    B, ifft_ms = timed(lambda: g.ifft(F), device)
+    launches = read_counts(device, "group FFT", ("mont_mul",))
+    back = ops.to_affine(B)
+    if not (torch.equal(back[2], aff[2]) and all(
+            torch.equal(u[:, ~aff[2]], v[:, ~aff[2]])
+            for u, v in zip(back[:2], aff[:2]))):
+        raise AssertionError("ifft(fft(P)) != P")
+    Fa = ops.to_affine(F)
+    k2 = int(rng.integers(2, n))
+    for k in (1, k2):
+        w, acc, ks = pow(g.gen, k, g.r), 1, []
+        for _ in range(n):
+            ks.append(acc)
+            acc = acc * w % g.r
+        want = ck.msm("g1").msm_std(ck.fr.encode(ks, mont=False), aff, None,
+                                    block)
+        if ck.decode_g1(ops.to_affine(want)) != ck.decode_g1(
+                tuple(t[..., k] for t in Fa)):
+            raise AssertionError(f"group FFT output {k} differs from the "
+                                 "MSM")
+    log(f"# group FFT G1 2^{log_n}: outputs 1 and {k2} equal msm_std with "
+        f"scalars w^(j k); ifft(fft(P)) == P; fft {fft_ms:.0f} ms, ifft "
+        f"{ifft_ms:.0f} ms")
+    return launches, {"fft": fft_ms, "ifft": ifft_ms}
 
 
 def cols_to_limbs(cols: np.ndarray) -> np.ndarray:
@@ -435,7 +661,7 @@ def tiled_seeds(ck, grp, n, device):
 
 
 def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
-        block: int = 512):
+        block: int = 512, ntt_log_n: int = 20, gfft_log_n: int = 14):
     import torch
     from zikkurat_algebra_tpu_torch import params as P
     from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
@@ -479,15 +705,23 @@ def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
                                block, ("mont_mul", "sort_key_val",
                                        "bucket_scan"))
 
+    # the NTT, polynomial and group-FFT path
+    meas["ntt_stage"] = phase_k5(device, ntt_log_n, int_rate, rng)
+    launches["ntt"], meas["ntt_stage"]["ntt_path"] = phase_ntt(
+        device, ntt_log_n, rng)
+    launches["poly"], meas["ntt_stage"]["poly_ms"] = phase_poly(
+        device, ntt_log_n, rng)
+    launches["gfft"], meas["ntt_stage"]["gfft_ms"] = phase_gfft(
+        ck, device, gfft_log_n, block, rng)
+
     rows = []
     for name, (src, rep) in KERNELS.items():
         row = dict(name=name, route="cuda",
                    source=f"zikkurat_algebra_tpu_torch/csrc/{src}.cu",
                    replaces=rep,
-                   launches=launches["g2"][name] + launches["g1"][name],
-                   launches_g2=launches["g2"][name],
-                   launches_g1=launches["g1"][name], library_ms=None,
-                   ptxas=regs.get(name, {}))
+                   launches=sum(v[name] for v in launches.values()),
+                   launches_by_path={k: v[name] for k, v in launches.items()},
+                   library_ms=None, ptxas=regs.get(name, {}))
         row.update(meas[name])
         rows.append(row)
     log(card)

@@ -1,5 +1,5 @@
-"""Kernels K1, K2, K3 and K4 on the card against their plain torch
-versions, and small G1 and G2 MSMs on the card against the oracle.
+"""Kernels K1 to K5 on the card against their plain torch versions,
+small G1 and G2 MSMs and NTTs on the card against the oracle.
 
 Every test here is marked `gpu` and skips, from inside the `cuda_device`
 fixture, on a host without a CUDA card.  The file imports neither JAX nor
@@ -17,9 +17,12 @@ import torch
 
 from zikkurat_algebra_tpu_torch import params as P
 from zikkurat_algebra_tpu_torch.ops import (kernel_curve, kernel_field,
-                                            kernel_sort)
+                                            kernel_ntt, kernel_sort)
 from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
 from zikkurat_algebra_tpu_torch.ops.field import Field
+from zikkurat_algebra_tpu_torch.ops.ntt import NTTDomain
+from zikkurat_algebra_tpu_torch.oracle.ntt import intt as oracle_intt
+from zikkurat_algebra_tpu_torch.oracle.ntt import ntt as oracle_ntt
 
 torch.set_num_threads(1)
 
@@ -192,3 +195,54 @@ def test_msm_g2_on_card_vs_oracle(cuda_device):
     assert kernel_sort.sort_key_val.launches == counts[1] + 1
     assert kernel_curve.bucket_scan2.launches == counts[2] + 1
     assert got == og.msm(ks, pts)
+
+
+def _rand_fr(f, n, seed):
+    rng = np.random.default_rng(seed)
+    return [int.from_bytes(rng.bytes(40), "little") % f.p for _ in range(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,lanes", [
+    (1, 1024, 1),          # the radix-2 transform's layout
+    (3, 64, 8),            # a batch, four-step column passes
+    (2, 16, 64),           # more lanes than rows
+])
+def test_ntt_stage_kernel_vs_plain(cuda_device, B, S, lanes):
+    """Kernel K5 equals its plain version limb for limb at every stage,
+    and its counter steps by one per stage; W = 12 is refused."""
+    f = Field(P.BLS12_381_FR, device=cuda_device)
+    x = f.encode(_rand_fr(f, B * S * lanes, S + lanes)).reshape(
+        f.W, B, S, lanes)
+    for s in range(1, S.bit_length()):
+        tw = f.encode(_rand_fr(f, 1 << (s - 1), 100 + s))
+        before = kernel_ntt.ntt_stage.launches
+        got = kernel_ntt.ntt_stage(x.clone(), tw, s, f)
+        torch.cuda.synchronize()
+        assert kernel_ntt.ntt_stage.launches == before + 1
+        assert torch.equal(got, kernel_ntt.ntt_stage_plain(x.clone(), tw, s,
+                                                           f))
+    g = Field(P.BLS12_381_FP, device=cuda_device)
+    y = g.encode([1, 2, 3, 4]).reshape(g.W, 1, 4, 1)
+    with pytest.raises(ValueError):
+        kernel_ntt.ntt_stage(y, g.encode([1]), 1, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,four_step", [(10, False), (9, True), (1, False)])
+def test_ntt_on_card_vs_oracle(cuda_device, m, four_step):
+    """NTT and inverse on the card, batch of two, against the oracle; a
+    radix-2 transform launches K5 once per stage."""
+    f = Field(P.BLS12_381_FR, device=cuda_device)
+    n = 1 << m
+    xs = _rand_fr(f, 2 * n, m)
+    dom = NTTDomain(f, m, four_step=four_step).prepare()
+    x = f.encode(xs).reshape(f.W, 2, n)
+    before = kernel_ntt.ntt_stage.launches
+    y = dom.ntt(x)
+    torch.cuda.synchronize()
+    assert kernel_ntt.ntt_stage.launches == before + m
+    want = oracle_ntt(f.p, dom.gen, xs[:n]) + oracle_ntt(f.p, dom.gen, xs[n:])
+    assert f.decode(y) == want
+    assert f.decode(dom.intt(y)) == xs
+    assert f.decode(dom.intt(x))[:n] == oracle_intt(f.p, dom.gen, xs[:n])

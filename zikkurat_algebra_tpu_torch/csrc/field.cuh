@@ -1,7 +1,8 @@
 // Montgomery arithmetic in GF(p) on W radix-2^32 limbs held in registers.
 //
 // Shared by the kernels of this directory (mont_mul.cu inlines mont_mul,
-// block_scan.cu and block_scan2.cu the whole file).  An element is uint32_t[W], least
+// ntt_stage.cu mont_mul, add_mod and sub_mod, block_scan.cu and
+// block_scan2.cu the whole file).  An element is uint32_t[W], least
 // significant limb first, canonical in [0, p), in Montgomery form with
 // R = 2^(32 W).  In device memory elements are limb planes: limb i of
 // element e of a batch of n sits at index i * n + e, so the threads of a

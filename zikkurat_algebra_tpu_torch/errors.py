@@ -11,5 +11,10 @@ class DimensionError(ZikkuratError):
     """Array dimensions incompatible with the requested operation."""
 
 
+class DomainSizeError(ZikkuratError):
+    """NTT or group-FFT domain size and array length disagree, or the
+    field has no domain of that size."""
+
+
 class UnsupportedError(ZikkuratError):
     """The curve family does not support the requested group."""

@@ -7,7 +7,8 @@ the JAX package, so both give the same X, Y, Z as field values.  The
 coordinate field is `Field` (G1, elements (W, *batch)) or `QuadExt`
 (G2, elements (W, 2, *batch)); the code only reads its `struct_ndim`.
 Independent products go through `mul_list` (one K1 launch) and
-independent sums through `add_list` / `sub_list`.
+independent sums through `add_list` / `sub_list`.  `scalar_mul_digits`
+is the windowed scalar multiplication the group FFT (ops/gfft.py) uses.
 """
 
 from __future__ import annotations
@@ -135,6 +136,53 @@ class ProjCurveOps:
         Y3n, Z3n = f.add_list([(p2, p3), (p4, p5)])
         X3n = f.sub(p0, p1)
         return self.select(inf2, P, (X3n, Y3n, Z3n))
+
+    # -- scalar multiplication ---------------------------------------------------
+    WINDOW = 4      # bits per digit of scalar_mul_digits: a 16-entry table
+
+    def stack(self, Ps, axis: int) -> Point:
+        """Points of equal shape stacked on a new batch axis."""
+        return tuple(torch.stack([q[i] for q in Ps], axis) for i in range(3))
+
+    def _window_table(self, P: Point) -> Point:
+        """[0] P .. [15] P as ONE point batch with a table axis after the
+        coordinate field's axes (curve.py:220-250), built in three levels
+        of one batched doubling and one batched addition each."""
+        sn = self.f.struct_ndim
+        tab = {0: self.infinity(self._bs(P[0])), 1: P}
+        k = 1
+        while 2 * k < 1 << self.WINDOW:
+            # 2t = dbl(t) and 2t + 1 = 2t + P for t in [k, 2k)
+            ev = self.dbl(self.stack([tab[t] for t in range(k, 2 * k)], sn))
+            od = self.add(ev, self.stack([P] * k, sn))
+            for j in range(k):
+                tab[2 * (k + j)] = tuple(c.select(sn, j) for c in ev)
+                tab[2 * (k + j) + 1] = tuple(c.select(sn, j) for c in od)
+            k *= 2
+        return self.stack([tab[t] for t in range(1 << self.WINDOW)], sn)
+
+    def scalar_mul_digits(self, digits: torch.Tensor, P: Point) -> Point:
+        """[k] P for scalars k given as MSB-first 4-bit digit planes
+        (S, *batch), any integer type (curve.py:265-281): the accumulator
+        starts at the first digit's table entry, then per digit 4
+        doublings and one addition of the entry, looked up with a gather
+        on the table axis."""
+        sn = self.f.struct_ndim
+        bs = self._bs(P[0])
+        table = self._window_table(P)
+
+        def entry(d):
+            idx = d.expand(bs).reshape((1,) * (sn + 1) + tuple(bs))
+            return tuple(c.gather(sn, idx.expand(c.shape[:sn] + (1,) + bs))
+                         .squeeze(sn) for c in table)
+
+        digits = digits.to(torch.int64)
+        acc = entry(digits[0])
+        for d in digits[1:]:
+            for _ in range(self.WINDOW):
+                acc = self.dbl(acc)
+            acc = self.add(acc, entry(d))
+        return acc
 
     def select(self, pred, P: Point, Q: Point) -> Point:
         s = self.f.select
