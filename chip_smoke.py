@@ -16,8 +16,10 @@ FFT path (`NTTDomain`, `PolyOps`, `GroupFFT`).  The script
 3. G2 path, on the 1024 committed seeds of
    bench_data/seeds_BLS12_381_g2.npz (tiled) and random scalars:
    a. K3 (grouping sort) against its plain version on the path's own
-      |digit| rows, exact; times the kernel, the plain version and
-      torch.sort;
+      |digit| rows and on small edge cases (every key equal, sorted,
+      reverse sorted, n = 1, n below one tile), exact; times the kernel,
+      the plain version and torch.sort + gather; reads the pass kernel's
+      resident CTAs per SM and its waves;
    b. K4 (Fp2 bucket accumulation) on the path's own inputs at block 512;
       its buckets and trailers are held exactly against the plain version
       on two of the windows (the first and the carry window), at full n
@@ -27,8 +29,11 @@ FFT path (`NTTDomain`, `PolyOps`, `GroupFFT`).  The script
       must be > 0), then three timed runs with per-stage times and peak
       device memory;
 4. G1 path, the same on bench_data/seeds_BLS12_381_g1.npz: K2 against its
-   plain version on all windows, then the MSM (K1, K2 and K3 must be
-   launched);
+   plain version on all windows, its buckets and trailers compared as
+   points after `to_affine` (K2 sums sub-lanes with complete additions,
+   so its projective coordinates differ from the plain version's), with
+   its resident CTAs per SM and waves; then the MSM (K1, K2 and K3 must
+   be launched);
 5. NTT path, BLS12-381 Fr at 2^20:
    a. K5 (NTT butterfly stage): one full radix-2 NTT of random inputs
       through the kernel and through its plain version, every stage
@@ -238,8 +243,44 @@ def phase_k1(device, n, int_rate, rng):
     return row
 
 
-def phase_k3(msm, k_limbs, device, block):
-    """K3 on the path's own |digit| rows against its plain version."""
+def occupancy_row(per_sm: int, ctas: int, sms: int) -> dict:
+    """Resident CTAs per SM, CTAs launched, and waves: CTAs over the CTAs
+    the card holds at once."""
+    return dict(blocks_per_sm=per_sm, ctas=ctas,
+                waves=ctas / (per_sm * sms) if per_sm else None)
+
+
+def k3_edge_cases(device):
+    """K3 against its plain version on small rows that stress the
+    look-back and the ragged last tile; returns the largest difference."""
+    import torch
+    from zikkurat_algebra_tpu_torch.ops import kernel_sort
+
+    rng = np.random.default_rng(7)     # apart from the paths' data
+    bits, err = 15, 0
+    keys = rng.integers(0, 1 << bits, (3, 20000))
+    cases = {"every key equal": np.full_like(keys, 12345),
+             "sorted": np.sort(keys, 1), "reverse": -np.sort(-keys, 1),
+             "n = 1": keys[:, :1], "n below one tile": keys[:, :1000],
+             "random, 3 payload rows": keys}
+    for name, k in cases.items():
+        kt = torch.from_numpy(np.ascontiguousarray(k, np.int32)).to(device)
+        R = 3 if name.startswith("random") else 1
+        pay = rng.integers(-(1 << 31), 1 << 31, (R,) + k.shape)
+        pay = torch.from_numpy(pay.astype(np.int32)).to(device)
+        e = max_limb_diff(kernel_sort.sort_key_val(kt, pay, bits),
+                          kernel_sort.sort_key_val_plain(kt, pay))
+        if e:
+            raise AssertionError(f"K3 differs from its plain version on "
+                                 f"{name}: max |diff| {e}")
+        err = max(err, e)
+    log(f"# K3 edge cases equal to plain: {', '.join(cases)}")
+    return err
+
+
+def phase_k3(msm, k_limbs, device, block, sms):
+    """K3 on the path's own |digit| rows against its plain version, then
+    on small edge cases."""
     import torch
     from zikkurat_algebra_tpu_torch.ops import kernel_sort
     from zikkurat_algebra_tpu_torch.ops.msm import window_size
@@ -257,6 +298,9 @@ def phase_k3(msm, k_limbs, device, block):
     if err:
         raise AssertionError(f"K3 differs from its plain version: max |diff| "
                              f"{err}")
+    err = max(err, k3_edge_cases(device))
+    occ = (occupancy_row(*kernel_sort.occupancy(wc, n), sms)
+           if device.type == "cuda" else {})
     ms = time_ms(lambda: kernel_sort.sort_key_val(keys, pay, bits), 10, device)
     plain_ms = time_ms(lambda: kernel_sort.sort_key_val_plain(keys, pay), 10,
                        device)
@@ -271,12 +315,12 @@ def phase_k3(msm, k_limbs, device, block):
     b_ms, b_by = bound(nbytes, 0, 1.0)
     passes = -(-bits // 8)
     log(f"# K3 sort_key_val {wc} rows x {n}, key_bits={bits} ({passes} "
-        f"passes): equal to plain; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-        f"ms, torch.sort + gather {library_ms:.3f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}: {nbytes} B; {passes} passes move {passes * nbytes} B)")
+        f"passes): equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, torch.sort + gather {library_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}: {nbytes} B); pass kernel {json.dumps(occ)}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms, max_abs_err=err,
-                shape=f"{wc} rows x {n}, key_bits {bits}")
+                shape=f"{wc} rows x {n}, key_bits {bits}", **occ)
 
 
 def scan_work(f, ncomp, pts, sd, idx, m, nbuckets):
@@ -302,9 +346,23 @@ def scan_work(f, ncomp, pts, sd, idx, m, nbuckets):
     return nbytes, nops, madds
 
 
-def phase_scan(ck, grp, k_limbs, pts, int_rate, device, m, windows=None):
+def affine_diff(ops, got, want) -> int:
+    """Largest |limb difference| between two projective batches after
+    `to_affine`: the infinity flags, and x and y where finite.  The
+    affine coordinates are canonical, so 0 means equal points mod p."""
+    ga, wa = ops.to_affine(got), ops.to_affine(want)
+    err = max_limb_diff(ga[2].int(), wa[2].int())
+    live = ~wa[2]
+    return max(err, max_limb_diff(tuple(t[..., live] for t in ga[:2]),
+                                  tuple(t[..., live] for t in wa[:2])))
+
+
+def phase_scan(ck, grp, k_limbs, pts, int_rate, device, m, sms,
+               windows=None):
     """K2 (G1) or K4 (G2) on the path's own inputs against the plain
-    version, on all windows or on the listed ones."""
+    version, on all windows or on the listed ones.  K2 combines sub-lanes
+    with complete additions, so its buckets and trailers are compared as
+    points, after `to_affine`; K4's limb for limb."""
     from zikkurat_algebra_tpu_torch.ops import kernel_curve
 
     ops = ck.g1 if grp == "g1" else ck.g2
@@ -318,25 +376,34 @@ def phase_scan(ck, grp, k_limbs, pts, int_rate, device, m, windows=None):
     want, plain_ms = timed(lambda: kernel_curve.bucket_scan_plain(
         ops.plain(), *gpts, sd[rows].contiguous(), idx[rows].contiguous(), m,
         nbuckets), device)
-    err = max_limb_diff(tuple(tuple(c[..., rows, :] for c in p) for p in got),
-                        want)
+    got = tuple(tuple(c[..., rows, :] for c in p) for p in got)
+    if grp == "g1":
+        err, how = max(affine_diff(ops, g, w) for g, w in zip(got, want)), \
+            "as points (after to_affine)"
+    else:
+        err, how = max_limb_diff(got, want), "limb for limb"
     if err:
-        raise AssertionError(f"{k} differs from its plain version: max |limb "
-                             f"diff| {err}")
+        raise AssertionError(f"{k} differs from its plain version {how}: max "
+                             f"|limb diff| {err}")
+    occ = {}
+    if grp == "g1" and device.type == "cuda":
+        occ = occupancy_row(*kernel_curve.bucket_scan_occupancy(
+            ck.fp.W, nwin, n, m), sms)
     ms = time_ms(lambda: kernel_curve.bucket_scan(ops, *args), 3, device)
     ncomp = 1 if grp == "g1" else 2
     nbytes, nops, madds = scan_work(ck.fp, ncomp, gpts, sd, idx, m, nbuckets)
     b_ms, b_by = bound(nbytes, nops, int_rate)
     scope = ("all windows" if windows is None else
              f"windows {rows} of 0..{nwin - 1}")
-    log(f"# {k} bucket_scan {grp} c={c} windows={nwin} n={n} block={m} "
-        f"lanes={nwin * n // m}: buckets and trailers equal to plain on "
-        f"{scope}; kernel {ms:.3f} ms (all windows), plain {plain_ms:.1f} ms "
-        f"({scope}), bound {b_ms:.3f} ms ({b_by}: {madds} madds, {nops} "
-        f"IMAD, {nbytes} B)")
+    log(f"# {k} bucket_scan {grp} c={c} windows={nwin} n={n} block={m}: "
+        f"buckets and trailers equal to plain {how} on {scope}; kernel "
+        f"{ms:.3f} ms (all windows), plain {plain_ms:.1f} ms ({scope}), "
+        f"bound {b_ms:.3f} ms ({b_by}: {madds} madds, {nops} IMAD, {nbytes} "
+        f"B); {json.dumps(occ)}")
     return dict(ms=ms, plain_ms=plain_ms, plain_scope=scope, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, max_abs_err=err,
-                shape=f"{nwin} windows x {n} points, block {m}")
+                compared=how, shape=f"{nwin} windows x {n} points, block {m}",
+                **occ)
 
 
 def counters():
@@ -680,6 +747,8 @@ def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
         regs = phase_build()
     else:
         int_rate = IMAD_PER_CLOCK_PER_SM * 132 * 1980e6
+    sms = (torch.cuda.get_device_properties(0).multi_processor_count
+           if device.type == "cuda" else 132)
     rng = np.random.default_rng(20)
     meas = {"mont_mul": phase_k1(device, 1 << k1_log_n, int_rate, rng)}
     ck = CurveKernels(P.BLS12_381, device)
@@ -689,9 +758,10 @@ def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
     seeds, nseed, pts = tiled_seeds(ck, "g2", n, device)
     k_np = rand_canonical(rng, ck.fr.p, ck.fr.W, n)
     k_limbs = torch.from_numpy(k_np).to(device)
-    meas["sort_key_val"] = phase_k3(ck.msm("g2"), k_limbs, device, block)
+    meas["sort_key_val"] = phase_k3(ck.msm("g2"), k_limbs, device, block,
+                                    sms)
     meas["bucket_scan2"] = phase_scan(ck, "g2", k_limbs, pts, int_rate,
-                                      device, block, windows=(0, -1))
+                                      device, block, sms, windows=(0, -1))
     launches = {"g2": phase_msm(ck, "g2", k_np, pts, seeds, nseed, device,
                                 block, ("mont_mul", "sort_key_val",
                                         "bucket_scan2"))}
@@ -700,7 +770,7 @@ def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
     seeds, nseed, pts = tiled_seeds(ck, "g1", n, device)
     k_np = rand_canonical(rng, ck.fr.p, ck.fr.W, n)
     meas["bucket_scan"] = phase_scan(ck, "g1", torch.from_numpy(k_np).to(
-        device), pts, int_rate, device, block)
+        device), pts, int_rate, device, block, sms)
     launches["g1"] = phase_msm(ck, "g1", k_np, pts, seeds, nseed, device,
                                block, ("mont_mul", "sort_key_val",
                                        "bucket_scan"))

@@ -1,5 +1,6 @@
-"""Kernels K1 to K5 on the card against their plain torch versions,
-small G1 and G2 MSMs and NTTs on the card against the oracle.
+"""Kernels K1 to K5 on the card against their plain torch versions (K2
+as points, after `to_affine`; the others limb for limb), small G1 and G2
+MSMs and NTTs on the card against the oracle.
 
 Every test here is marked `gpu` and skips, from inside the `cuda_device`
 fixture, on a host without a CUDA card.  The file imports neither JAX nor
@@ -34,14 +35,19 @@ def cuda_device():
     return "cuda"
 
 
-def make_scan_inputs(f, nwin, nblk, m, npts, nbuckets, seed, fp2=False):
+def make_scan_inputs(f, nwin, nblk, m, npts, nbuckets, seed, fp2=False,
+                     steps=(0, 0, 0, 1, 2), group=None):
     """Random K2 (or, with fp2, K4) inputs: per window row, sorted |digits|
     with long runs (segments spanning blocks), random signs, distinct
-    point indices, and points of which some are at infinity.  Returns
+    point indices, and points of which some are at infinity.  `steps`:
+    the increments of |digit| along a row, drawn uniformly.  The
+    coordinates are random field values, or, with an oracle `group`,
+    points of that group (k G for a random k, then one G more each):
+    the complete formulas are associative only on the curve.  Returns
     numpy arrays and the coordinates as Python ints (pairs for fp2)."""
     rng = np.random.default_rng(seed)
     n = nblk * m
-    steps = rng.choice([0, 0, 0, 1, 2], size=(nwin, n))
+    steps = rng.choice(list(steps), size=(nwin, n))
     a = np.minimum(np.cumsum(steps, 1) + rng.integers(0, 3, (nwin, 1)),
                    nbuckets)
     sign = np.where(rng.integers(0, 2, (nwin, n)) == 1, -1, 1)
@@ -51,6 +57,11 @@ def make_scan_inputs(f, nwin, nblk, m, npts, nbuckets, seed, fp2=False):
     ys = [(int(v) << 200 | int(v)) % f.p
           for v in rng.integers(0, 1 << 62, npts)]
     inf = rng.integers(0, 5, npts) == 0
+    if group is not None:
+        pt = group.scalar_mul(int(rng.integers(1, 1 << 62)), group.gen)
+        for i in range(npts):
+            xs[i], ys[i] = pt
+            pt = group.add(pt, group.gen)
     if fp2:
         xs, ys = ([(c, (int(v) << 120 | c) % f.p)
                    for c, v in zip(cs, rng.integers(0, 1 << 62, npts))]
@@ -78,17 +89,21 @@ def test_mont_mul_kernel_vs_plain(cuda_device, params):
     assert f.decode(got) == [x * y % f.p for x, y in zip(vals, vals[::-1])]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("curve", [P.BLS12_381, P.BN128],
-                         ids=lambda c: c.name)
-def test_bucket_scan_kernel_vs_plain(cuda_device, curve):
-    """Kernel K2 equals its plain version limb for limb: buckets and
-    trailers, with sign, infinity and restart cases."""
-    ck = CurveKernels(curve, device=cuda_device)
+def assert_same_points(ops, got, want):
+    """Projective batches equal as points: after `to_affine` the same
+    infinity flags and, where finite, the same canonical x and y (equal
+    limbs of canonical values: equal mod p)."""
+    ga, wa = ops.to_affine(got), ops.to_affine(want)
+    assert torch.equal(ga[2], wa[2])
+    live = ~wa[2]
+    for g, w in zip(ga[:2], wa[:2]):
+        assert torch.equal(g[:, live], w[:, live])
+
+
+def check_bucket_scan(ck, xs, ys, inf, sd, idx, m, nbuckets):
+    """K2 on the card against its plain version, buckets and trailers
+    compared as points; its counter steps by one."""
     f = ck.fp
-    nwin, nblk, m, nbuckets = 3, 40, 16, 60
-    xs, ys, inf, sd, idx = make_scan_inputs(f, nwin, nblk, m, 700, nbuckets,
-                                            seed=9)
     args = (f.encode(xs), f.encode(ys), torch.from_numpy(inf).cuda(),
             torch.from_numpy(sd).cuda(), torch.from_numpy(idx).cuda(), m,
             nbuckets)
@@ -98,8 +113,51 @@ def test_bucket_scan_kernel_vs_plain(cuda_device, curve):
     assert kernel_curve.bucket_scan.launches == before + 1
     want = kernel_curve.bucket_scan_plain(ck.g1.plain(), *args)
     for g, w in zip(got, want):
-        for gc, wc in zip(g, w):
-            assert torch.equal(gc, wc)
+        assert_same_points(ck.g1, g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve", [P.BLS12_381, P.BN128],
+                         ids=lambda c: c.name)
+def test_bucket_scan_kernel_vs_plain(cuda_device, curve):
+    """Kernel K2 equals its plain version after `to_affine`: buckets and
+    trailers, with sign, infinity and restart cases."""
+    ck = CurveKernels(curve, device=cuda_device)
+    nwin, nblk, m, nbuckets = 3, 40, 16, 60
+    check_bucket_scan(ck, *make_scan_inputs(ck.fp, nwin, nblk, m, 700,
+                                            nbuckets, seed=9,
+                                            group=ck.oracle_g1), m, nbuckets)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["long_runs_512", "m1", "m24", "m7",
+                                  "infinite_sub_lane", "distinct_digits"])
+def test_bucket_scan_kernel_cases(cuda_device, case):
+    """K2's sub-lanes and their combine against the plain version: runs
+    that cross sub-lanes and blocks at block 512, blocks with fewer
+    positions than sub-lanes (1, 7) or not a multiple of them (24), a
+    sub-lane whose points are all at infinity, every position its own
+    digit."""
+    ck = CurveKernels(P.BLS12_381, device=cuda_device)
+    nwin, nblk, m, nbuckets, npts = 2, 6, 24, 40, 700
+    steps = (0, 0, 0, 1, 2)
+    if case == "long_runs_512":
+        nblk, m, npts, steps = 3, 512, 1600, (0,) * 99 + (1,)
+    elif case == "m1":
+        nblk, m = 90, 1
+    elif case == "m7":
+        nblk, m = 20, 7
+    xs, ys, inf, sd, idx = make_scan_inputs(ck.fp, nwin, nblk, m, npts,
+                                            nbuckets, seed=len(case),
+                                            steps=steps, group=ck.oracle_g1)
+    if case == "infinite_sub_lane":
+        inf[:] = False
+        inf[idx[0, m + 3:m + 6]] = True          # sub-lane 1 of block 1
+    if case == "distinct_digits":
+        n = nblk * m
+        sd = (np.arange(1, n + 1) * np.where(sd < 0, -1, 1)).astype(np.int32)
+        nbuckets = n
+    check_bucket_scan(ck, xs, ys, inf, sd, idx, m, nbuckets)
 
 
 @pytest.mark.gpu
@@ -145,6 +203,37 @@ def test_sort_kernel_vs_plain(cuda_device, wc, n, R, key_bits):
     with pytest.raises(ValueError):
         kernel_sort.sort_key_val(keys, pay, key_bits - 1 if key_bits > 2
                                  else 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["all_equal", "sorted", "reverse", "n1",
+                                  "below_tile", "path"])
+def test_sort_kernel_edge_cases(cuda_device, case):
+    """K3 equals its plain version exactly where the look-back and the
+    ragged last tile are stressed: one digit for every key, keys already
+    in order and in reverse, n = 1, n below one tile, and the MSM's
+    shape (18 rows of 2^20 keys of 15 bits, one payload row)."""
+    g = np.random.default_rng(7)
+    wc, n, key_bits = 3, 20000, 15
+    keys = g.integers(0, 1 << key_bits, (wc, n))
+    if case == "all_equal":
+        keys[:] = 12345
+    elif case == "sorted":
+        keys.sort(1)
+    elif case == "reverse":
+        keys = -np.sort(-keys, 1)
+    elif case == "n1":
+        keys = keys[:, :1]
+    elif case == "below_tile":
+        keys = keys[:, :1000]
+    elif case == "path":
+        keys = g.integers(0, 1 << key_bits, (18, 1 << 20))
+    keys = torch.from_numpy(keys.astype(np.int32)).cuda()
+    pay = torch.arange(keys.numel(), dtype=torch.int32,
+                       device="cuda").view(1, *keys.shape)
+    got = kernel_sort.sort_key_val(keys, pay, key_bits)
+    want = kernel_sort.sort_key_val_plain(keys, pay)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.gpu

@@ -1,16 +1,15 @@
 """Kernels K2 (G1) and K4 (G2): level-1 bucket accumulation of the MSM, and
 their plain version.
 
-`bucket_scan` runs one lane per (window, block) of the sorted digit rows.
-Each lane streams through the m positions of its block and keeps a
-running projective sum:
+`bucket_scan` keeps, for each (window, block) of the sorted digit rows,
+the running projective sum over the m positions of the block:
 
     acc = restart ? from_affine(pt) : madd(acc, pt)
 
 where pt is the point of that position (gathered by its index, y negated
 for a negative digit, the identity if the point is at infinity), madd is
-RCB15 algorithm 8, and a lane restarts at its first position and wherever
-the digit changes.  It writes only what the MSM reads afterwards:
+RCB15 algorithm 8, and the sum restarts at the block's first position and
+wherever the digit changes.  It writes only what the MSM reads afterwards:
 
 * the running value at each segment's global tail (the last position of
   a digit in the whole row) into bucket[w, digit] -- each (window, digit)
@@ -18,12 +17,18 @@ the digit changes.  It writes only what the MSM reads afterwards:
 * the running value at each block's last position, the trailer S[w, blk]
   that the level-2 carries combine across blocks.
 
-Buckets that no tail writes stay at infinity.  `bucket_scan` dispatches
-on the coordinates' rank: Fp coordinates (W, npts) go to K2, Fp2
-coordinates (W, 2, npts) to K4 (`bucket_scan2`).  On a CUDA tensor each
-wrapper launches its hand-written kernel, `csrc/block_scan.cu` or
-`csrc/block_scan2.cu`; on a CPU tensor both run `bucket_scan_plain`, which
-works over either coordinate field.
+Buckets that no tail writes stay at infinity.  The plain version walks
+the positions in order, one lane per block.  K2 splits each block among
+eight sub-lanes and joins their sums with complete additions, so its
+buckets and trailers are the same points as the plain version's in other
+projective coordinates: they are compared after `to_affine`.  K4 keeps one
+lane per block and equals the plain version limb for limb.
+
+`bucket_scan` dispatches on the coordinates' rank: Fp coordinates
+(W, npts) go to K2, Fp2 coordinates (W, 2, npts) to K4 (`bucket_scan2`).
+On a CUDA tensor each wrapper launches its hand-written kernel,
+`csrc/block_scan.cu` or `csrc/block_scan2.cu`; on a CPU tensor both run
+`bucket_scan_plain`, which works over either coordinate field.
 
 They replace the Pallas kernels `_build_block_scan` / `block_madd_scan`
 and `_build_block_scan2` / `block_madd_scan2` of
@@ -100,6 +105,13 @@ _ARGTYPES = [ctypes.c_void_p] * 12 + [
 ]
 
 
+def _host_words(v: int, W: int):
+    """v as W 32-bit words in host memory, least significant first (K2
+    takes its field constants as kernel parameters)."""
+    return (ctypes.c_uint32 * W)(*((v >> (32 * i)) & 0xFFFFFFFF
+                                   for i in range(W)))
+
+
 def _outputs(ops: ProjCurveOps, sd, m: int, nbuckets: int):
     """Buckets at infinity and uninitialised trailers on sd's device."""
     nwin, n = sd.shape
@@ -140,9 +152,10 @@ def bucket_scan(ops: ProjCurveOps, x, y, inf, sd, idx, m: int,
         return buckets, S
     fn = build.load("block_scan", "zk_bucket_scan", _ARGTYPES)
     rc = fn(
-        *(t.data_ptr() for t in tensors + buckets + S + (f.p32,)),
-        f.n0, f.one_limbs.data_ptr(), ops.b3, f.W, nwin, n, x.shape[1], m,
-        nbuckets + 1, torch.cuda.current_stream(dev).cuda_stream,
+        *(t.data_ptr() for t in tensors + buckets + S),
+        _host_words(f.p, f.W), f.n0, _host_words(f.R % f.p, f.W), ops.b3,
+        f.W, nwin, n, x.shape[1], m, nbuckets + 1,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"bucket_scan kernel launch failed: cudaError {rc}")
@@ -151,6 +164,19 @@ def bucket_scan(ops: ProjCurveOps, x, y, inf, sd, idx, m: int,
 
 
 bucket_scan.launches = 0
+
+
+def bucket_scan_occupancy(W: int, nwin: int, n: int, m: int):
+    """(resident CTAs per SM, CTAs launched) of K2 at W limbs for nwin
+    windows of n positions at block m, on the current card."""
+    per_sm, ctas = ctypes.c_int(), ctypes.c_longlong()
+    fn = build.load("block_scan", "zk_bucket_scan_occupancy",
+                    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    rc = fn(W, nwin, n, m, ctypes.addressof(per_sm), ctypes.addressof(ctas))
+    if rc != 0:
+        raise RuntimeError(f"bucket_scan occupancy query failed: cudaError "
+                           f"{rc}")
+    return per_sm.value, ctas.value
 
 
 _ARGTYPES2 = [ctypes.c_void_p] * 12 + [

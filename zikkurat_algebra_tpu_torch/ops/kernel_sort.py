@@ -4,7 +4,7 @@
 int32 keys (wc, n), all below 2^key_bits, in ascending order and carries
 the R int32 payload rows (R, wc, n) along.  The sort is stable: equal keys
 keep their input order.  On a CUDA tensor the wrapper launches the
-hand-written radix sort of `csrc/sort.cu`; on a CPU tensor it runs
+hand-written Onesweep radix sort of `csrc/sort.cu`; on a CPU tensor it runs
 `sort_key_val_plain` (`torch.sort(stable=True)` and a gather), which is
 also what the kernel is held to, exactly, on the card.
 
@@ -20,9 +20,6 @@ import ctypes
 import torch
 
 from ..utils import build
-
-RADIX_BITS = 8
-TILE = 2048                 # positions per histogram tile (csrc/sort.cu)
 
 
 def _check(keys, payload, key_bits: int):
@@ -54,6 +51,9 @@ def sort_key_val_plain(keys: torch.Tensor, payload: torch.Tensor):
 
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_SCRATCH_ARGTYPES = [ctypes.c_int] * 3
+_OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
 
 
 def sort_key_val(keys: torch.Tensor, payload: torch.Tensor, key_bits: int):
@@ -72,11 +72,12 @@ def sort_key_val(keys: torch.Tensor, payload: torch.Tensor, key_bits: int):
     if wc * n == 0:
         return kout, pout
     kt, pt = torch.empty_like(keys), torch.empty_like(payload)
-    counts = torch.empty((wc, 1 << RADIX_BITS, -(-n // TILE)),
-                         dtype=torch.int32, device=dev)
+    nbytes = build.load("sort", "zk_sort_scratch_bytes", _SCRATCH_ARGTYPES,
+                        ctypes.c_longlong)(wc, n, key_bits)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     fn = build.load("sort", "zk_sort_key_val", _ARGTYPES)
     rc = fn(keys.data_ptr(), payload.data_ptr(), kout.data_ptr(),
-            pout.data_ptr(), kt.data_ptr(), pt.data_ptr(), counts.data_ptr(),
+            pout.data_ptr(), kt.data_ptr(), pt.data_ptr(), scratch.data_ptr(),
             wc, n, R, key_bits, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sort_key_val kernel launch failed: cudaError {rc}")
@@ -85,3 +86,14 @@ def sort_key_val(keys: torch.Tensor, payload: torch.Tensor, key_bits: int):
 
 
 sort_key_val.launches = 0
+
+
+def occupancy(wc: int, n: int):
+    """(resident CTAs per SM, CTAs per pass) of the kernel's pass launch
+    for keys (wc, n), on the current card."""
+    per_sm, ctas = ctypes.c_int(), ctypes.c_longlong()
+    rc = build.load("sort", "zk_sort_occupancy", _OCCUPANCY_ARGTYPES)(
+        wc, n, ctypes.addressof(per_sm), ctypes.addressof(ctas))
+    if rc != 0:
+        raise RuntimeError(f"sort occupancy query failed: cudaError {rc}")
+    return per_sm.value, ctas.value

@@ -97,10 +97,12 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     return secs
 
 
-def load(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+def load(name: str, symbol: str, argtypes: Sequence,
+         restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C entry point `symbol` of kernel library `name`, built if
     needed.  Every pointer and the stream must be `ctypes.c_void_p` in
-    `argtypes`; the function returns a cudaError_t as int."""
+    `argtypes`; the function returns `restype`, by default a cudaError_t
+    as int."""
     fn = _FNS.get(symbol)
     if fn is None:
         lib = _LIBS.get(name)
@@ -109,6 +111,6 @@ def load(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
             lib = _LIBS[name] = ctypes.CDLL(str(lib_path(name)))
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _FNS[symbol] = fn
     return fn
