@@ -9,7 +9,7 @@ FFT path (`NTTDomain`, `PolyOps`, `GroupFFT`).  The script
 
 1. prints the card and its power limit, builds the five CUDA kernels from
    the sources in this checkout (one nvcc per source, in parallel) and
-   prints the registers and spills `-Xptxas -v` reports;
+   prints the registers, spills and stack frames `-Xptxas -v` reports;
 2. holds kernel K1 (Montgomery product) against its plain torch version
    on 2^20 random elements of BLS12-381 Fp, BLS12-381 Fr and BN128 Fp:
    exact limb equality; times both;
@@ -21,9 +21,11 @@ FFT path (`NTTDomain`, `PolyOps`, `GroupFFT`).  The script
       the plain version and torch.sort + gather; reads the pass kernel's
       resident CTAs per SM and its waves;
    b. K4 (Fp2 bucket accumulation) on the path's own inputs at block 512;
-      its buckets and trailers are held exactly against the plain version
-      on two of the windows (the first and the carry window), at full n
-      and full block; times both;
+      its buckets and trailers are held against the plain version on two
+      of the windows (the first and the carry window), at full n and
+      full block, as points after `to_affine` (K4 sums sub-lanes with
+      complete additions, like K2 below); times both; reads its resident
+      CTAs per SM and its waves;
    c. the MSM: a 2^6-prefix check and a folded full-size check against
       the oracle, the launches of every kernel in that run (K1, K3 and K4
       must be > 0), then three timed runs with per-stage times and peak
@@ -174,8 +176,8 @@ def kernel_label(mangled: str) -> str:
 
 
 def ptxas_report(text: str):
-    """{entry label: (registers, spill store + load bytes)} from the
-    -Xptxas -v log of one source."""
+    """{entry label: (registers, spill store + load bytes, stack frame
+    bytes)} from the -Xptxas -v log of one source."""
     out, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -183,15 +185,28 @@ def ptxas_report(text: str):
         if m:
             cur = kernel_label(m.group(1))
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and cur:
-            regs = out.get(cur, (None, 0))[0]
-            out[cur] = (regs, int(m.group(1)) + int(m.group(2)))
+            regs = out.get(cur, (None,))[0]
+            out[cur] = (regs, int(m.group(2)) + int(m.group(3)),
+                        int(m.group(1)))
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
-            out[cur] = (int(m.group(1)), out.get(cur, (None, 0))[1])
+            out[cur] = (int(m.group(1)),) + out.get(cur, (None, 0, 0))[1:]
     return out
+
+
+def ptxas_rows(rep) -> dict:
+    return {k: {"registers": r, "spill_bytes": s, "stack_frame_bytes": f}
+            for k, (r, s, f) in rep.items()}
+
+
+def ptxas_text(rep) -> str:
+    """A called function has no register count of its own."""
+    return "; ".join(f"{k}: " + ("" if r is None else f"{r} registers, ")
+                     + f"{s} B spilled, {f} B stack frame"
+                     for k, (r, s, f) in rep.items())
 
 
 def phase_build():
@@ -204,10 +219,8 @@ def phase_build():
     regs = {}
     for name, (src, _) in KERNELS.items():
         rep = ptxas_report(build.log_path(src).read_text())
-        regs[name] = {k: {"registers": r, "spill_bytes": s}
-                      for k, (r, s) in rep.items()}
-        for k, (r, s) in rep.items():
-            log(f"# ptxas {src} {k}: {r} registers, {s} bytes spilled")
+        regs[name] = ptxas_rows(rep)
+        log(f"# ptxas {src}: {ptxas_text(rep)}")
     return regs
 
 
@@ -360,9 +373,9 @@ def affine_diff(ops, got, want) -> int:
 def phase_scan(ck, grp, k_limbs, pts, int_rate, device, m, sms,
                windows=None):
     """K2 (G1) or K4 (G2) on the path's own inputs against the plain
-    version, on all windows or on the listed ones.  K2 combines sub-lanes
-    with complete additions, so its buckets and trailers are compared as
-    points, after `to_affine`; K4's limb for limb."""
+    version, on all windows or on the listed ones.  Both combine
+    sub-lanes with complete additions, so their buckets and trailers are
+    compared as points, after `to_affine`."""
     from zikkurat_algebra_tpu_torch.ops import kernel_curve
 
     ops = ck.g1 if grp == "g1" else ck.g2
@@ -377,18 +390,16 @@ def phase_scan(ck, grp, k_limbs, pts, int_rate, device, m, sms,
         ops.plain(), *gpts, sd[rows].contiguous(), idx[rows].contiguous(), m,
         nbuckets), device)
     got = tuple(tuple(c[..., rows, :] for c in p) for p in got)
-    if grp == "g1":
-        err, how = max(affine_diff(ops, g, w) for g, w in zip(got, want)), \
-            "as points (after to_affine)"
-    else:
-        err, how = max_limb_diff(got, want), "limb for limb"
+    err = max(affine_diff(ops, g, w) for g, w in zip(got, want))
+    how = "as points (after to_affine)"
     if err:
         raise AssertionError(f"{k} differs from its plain version {how}: max "
                              f"|limb diff| {err}")
     occ = {}
-    if grp == "g1" and device.type == "cuda":
-        occ = occupancy_row(*kernel_curve.bucket_scan_occupancy(
-            ck.fp.W, nwin, n, m), sms)
+    if device.type == "cuda":
+        query = (kernel_curve.bucket_scan_occupancy if grp == "g1"
+                 else kernel_curve.bucket_scan2_occupancy)
+        occ = occupancy_row(*query(ck.fp.W, nwin, n, m), sms)
     ms = time_ms(lambda: kernel_curve.bucket_scan(ops, *args), 3, device)
     ncomp = 1 if grp == "g1" else 2
     nbytes, nops, madds = scan_work(ck.fp, ncomp, gpts, sd, idx, m, nbuckets)

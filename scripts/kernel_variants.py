@@ -1,21 +1,27 @@
-"""Time variants of kernels K2 (G1 bucket scan) and K3 (grouping sort) on
-one NVIDIA card.
+"""Time variants of kernels K2 (G1 bucket scan), K3 (grouping sort) and
+K4 (G2 bucket scan) on one NVIDIA card.
 
-    python3 scripts/kernel_variants.py
+    python3 scripts/kernel_variants.py [K2] [K3] [K4]
 
-A variant is the kernel's source in this checkout with a few text edits: a
-register cap, the number of sub-lanes, a Montgomery product written with
-PTX carry chains, the keys per thread.  The script builds every variant
-with the flags of zikkurat_algebra_tpu_torch/utils/build.py (one nvcc per
-variant, all started together) into build/variants/, prints the registers
-and spills ptxas reports, and runs each on the BLS12-381 G1 path's inputs
-at 2^20 (the committed seeds tiled, random scalars, block 512), as
-chip_smoke.py gives them to K2 and K3.  Each variant is checked against
-the committed kernel (K2's buckets and trailers as points after
-`to_affine`, K3 exactly) and timed with CUDA events; the committed kernel
-runs first and last.  The last line is a JSON object with every number,
-the line before it the card's name and power limit.  It needs a CUDA
-card and nvcc.
+(all three when none is named).  A variant is the kernel's source in this
+checkout with a few text edits: a register cap, the number of sub-lanes,
+a Montgomery product written with PTX carry chains, the keys per thread;
+for K4 also the Fp2 product inlined, with its three Karatsuba products
+interleaved in one CIOS loop, or reading the modulus through the kernel
+parameter's address or from the stack instead of from __constant__
+memory, the combine through shared memory instead of warp shuffles, the
+shared-memory carveout, a persistent grid of fewer warps.  The script builds
+every variant with the flags of zikkurat_algebra_tpu_torch/utils/build.py
+(one nvcc per variant, all started together) into build/variants/, prints
+the registers, spills and stack frames ptxas reports, and runs each on
+the BLS12-381 path's inputs at 2^20 (the committed seeds tiled, random
+scalars, block 512) as chip_smoke.py gives them to the kernel: the G1
+path's for K2 and K3, the G2 path's for K4.  Each variant is checked
+against the committed kernel (K2's and K4's buckets and trailers as
+points after `to_affine`, K3 exactly) and timed with CUDA events; the
+committed kernel runs first and last.  The last line is a JSON object
+with every number, the line before it the card's name and power limit.
+It needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -97,6 +103,181 @@ K2_VARIANTS = {
     "PTX carry chains, no register cap": CC + [
         (K2_BOUNDS, "__launch_bounds__(kThreads)")],
 }
+# K4's Fp2 product with its three Karatsuba products interleaved in one
+# CIOS loop: three independent carry chains per row.  Same contract as
+# zk::f2_mul in csrc/field.cuh.
+F2_MUL_IL = r"""
+#pragma once
+namespace zk {
+template <int W>
+__device__ __forceinline__ void cios_row(uint32_t (&t)[W + 2],
+                                         const uint32_t (&a)[W], uint32_t bi,
+                                         const uint32_t (&p)[W], uint32_t n0) {
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    uint64_t s = static_cast<uint64_t>(a[j]) * bi + t[j] + c;
+    t[j] = static_cast<uint32_t>(s);
+    c = s >> 32;
+  }
+  uint64_t s = static_cast<uint64_t>(t[W]) + c;
+  t[W] = static_cast<uint32_t>(s);
+  t[W + 1] = static_cast<uint32_t>(s >> 32);
+  const uint32_t m = t[0] * n0;
+  s = static_cast<uint64_t>(m) * p[0] + t[0];
+  c = s >> 32;
+#pragma unroll
+  for (int j = 1; j < W; ++j) {
+    s = static_cast<uint64_t>(m) * p[j] + t[j] + c;
+    t[j - 1] = static_cast<uint32_t>(s);
+    c = s >> 32;
+  }
+  s = static_cast<uint64_t>(t[W]) + c;
+  t[W - 1] = static_cast<uint32_t>(s);
+  t[W] = t[W + 1] + static_cast<uint32_t>(s >> 32);
+}
+
+template <int W>
+__device__ __forceinline__ void f2_mul_il(Fp2<W>& r, const Fp2<W>& a,
+                                       const Fp2<W>& b,
+                                       const uint32_t (&p)[W], uint32_t n0,
+                                       int qnr) {
+  uint32_t sa[W], sb[W], t0[W + 2], t1[W + 2], t2[W + 2];
+  add_mod<W>(sa, a.c0, a.c1, p);
+  add_mod<W>(sb, b.c0, b.c1, p);
+#pragma unroll
+  for (int i = 0; i < W + 2; ++i) t0[i] = t1[i] = t2[i] = 0u;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    cios_row<W>(t0, a.c0, b.c0[i], p, n0);
+    cios_row<W>(t1, a.c1, b.c1[i], p, n0);
+    cios_row<W>(t2, sa, sb[i], p, n0);
+  }
+  uint32_t u0[W], u1[W], u2[W], lo[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) lo[i] = t0[i];
+  reduce_once<W>(u0, lo, t0[W], p);
+#pragma unroll
+  for (int i = 0; i < W; ++i) lo[i] = t1[i];
+  reduce_once<W>(u1, lo, t1[W], p);
+#pragma unroll
+  for (int i = 0; i < W; ++i) lo[i] = t2[i];
+  reduce_once<W>(u2, lo, t2[W], p);
+  add_mod<W>(lo, u0, u1, p);
+  sub_mod<W>(r.c1, u2, lo, p);
+  mul_nr<W>(u1, u1, qnr, p);
+  add_mod<W>(r.c0, u0, u1, p);
+}
+}  // namespace zk
+"""
+
+# K4's combine through a shared buffer instead of warp shuffles: limb i of
+# coordinate c of lane l at [(c W + i) 32 + l] (one warp per CTA).
+K4_SHFL = """#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    X2.c0[i] = __shfl_up_sync(kFull, X.c0[i], j, kSub);
+    X2.c1[i] = __shfl_up_sync(kFull, X.c1[i], j, kSub);
+    Y2.c0[i] = __shfl_up_sync(kFull, Y.c0[i], j, kSub);
+    Y2.c1[i] = __shfl_up_sync(kFull, Y.c1[i], j, kSub);
+    Z2.c0[i] = __shfl_up_sync(kFull, Z.c0[i], j, kSub);
+    Z2.c1[i] = __shfl_up_sync(kFull, Z.c1[i], j, kSub);
+  }"""
+K4_SHARED = """__shared__ uint32_t sh[6 * W * 32];
+  const int lane = threadIdx.x & 31;
+  const int q = (lane & (kSub - 1)) >= j ? lane - j : lane;
+  const uint32_t* src[6] = {X.c0, X.c1, Y.c0, Y.c1, Z.c0, Z.c1};
+  uint32_t* dst[6] = {X2.c0, X2.c1, Y2.c0, Y2.c1, Z2.c0, Z2.c1};
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < 6; ++c)
+#pragma unroll
+    for (int i = 0; i < W; ++i) sh[(c * W + i) * 32 + lane] = src[c][i];
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < 6; ++c)
+#pragma unroll
+    for (int i = 0; i < W; ++i) dst[c][i] = sh[(c * W + i) * 32 + q];"""
+# K4's called Fp2 product reading the modulus through the address of the
+# kernel parameter (generic loads) instead of from __constant__ memory.
+F2_MUL_PARAM = r"""
+#pragma once
+namespace zk {
+template <int W>
+__device__ __noinline__ void f2_mul_param(Fp2<W>& r, const Fp2<W>& a,
+                                          const Fp2<W>& b,
+                                          const uint32_t (&p)[W], uint32_t n0,
+                                          int qnr) {
+  f2_mul<W>(r, a, b, p, n0, qnr);
+}
+}  // namespace zk
+"""
+
+# A persistent K4: Q one-warp CTAs per SM walk the blocks' warps in a
+# grid-stride loop, so fewer stack frames compete for L1.
+PERSISTENT = r"""
+#pragma once
+inline unsigned persistent_grid(long long ctas, int per_sm) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long g = static_cast<long long>(sms) * per_sm;
+  return static_cast<unsigned>(ctas < g ? ctas : g);
+}
+"""
+K4_CARVEOUT = "kCarveoutPercent = 8;"
+K4_BOUNDS = "__launch_bounds__(kThreads, 12)"
+K4_INCLUDE = '#include "field.cuh"'
+MOD_PARAM = [
+    ("f2_mul_called<W>(r, a, b, k.n0, k.qnr);",
+     "zk::f2_mul_param<W>(r, a, b, k.p, k.n0, k.qnr);"),
+    (K4_INCLUDE, K4_INCLUDE + '\n#include "f2_mul_param.cuh"')]
+K4_CALLED = "__device__ __noinline__ void f2_mul_called"
+K4_INLINED = "__device__ __forceinline__ void f2_mul_called"
+
+
+def persistent(q):
+    return [
+        ("  const long long g = static_cast<long long>(blockIdx.x) * "
+         "blockDim.x +\n                      threadIdx.x;",
+         "  const long long total = static_cast<long long>(nwin) * nblk * "
+         "kSub;\n  for (long long g0 = static_cast<long long>(blockIdx.x) * "
+         "blockDim.x;\n       g0 < total; g0 += static_cast<long long>("
+         "gridDim.x) * blockDim.x) {\n  const long long g = g0 + "
+         "threadIdx.x;"),
+        ("    zk::store_fp2<W>(bz, Z, e, bstride);\n  }\n}\n\nlong long ctas(",
+         "    zk::store_fp2<W>(bz, Z, e, bstride);\n  }\n  }\n}\n\n"
+         "long long ctas("),
+        ("bucket_scan2_kernel<W><<<static_cast<unsigned>(ctas(nwin, n, m)),",
+         f"bucket_scan2_kernel<W><<<persistent_grid(ctas(nwin, n, m), {q}),"),
+        (K4_INCLUDE + "\n", K4_INCLUDE + '\n#include "persistent.cuh"\n'),
+        (K4_BOUNDS, "__launch_bounds__(kThreads)")]
+
+
+K4_VARIANTS = {
+    "2 sub-lanes": [("constexpr int kSub = 4;", "constexpr int kSub = 2;")],
+    "8 sub-lanes": [("constexpr int kSub = 4;", "constexpr int kSub = 8;")],
+    "16 sub-lanes": [("constexpr int kSub = 4;", "constexpr int kSub = 16;")],
+    "no register cap (255)": [(K4_BOUNDS, "__launch_bounds__(kThreads)")],
+    "128 registers": [(K4_BOUNDS, "__launch_bounds__(kThreads, 16)")],
+    "Fp2 product inlined": [(K4_CALLED, K4_INLINED)],
+    "Fp2 product inlined, no register cap": [
+        (K4_CALLED, K4_INLINED), (K4_BOUNDS, "__launch_bounds__(kThreads)")],
+    "Karatsuba products interleaved in one CIOS loop": [
+        ("zk::f2_mul<W>(r, a, b, modulus<W>(), n0, qnr);",
+         "zk::f2_mul_il<W>(r, a, b, modulus<W>(), n0, qnr);"),
+        (K4_INCLUDE, K4_INCLUDE + '\n#include "f2_mul_il.cuh"')],
+    "combine through shared memory": [
+        (K4_SHFL, K4_SHARED), (K4_CARVEOUT, "kCarveoutPercent = 50;")],
+    "modulus through the kernel parameter's address": MOD_PARAM,
+    "modulus copied to the stack": MOD_PARAM + [
+        ("__grid_constant__ const Consts<W> k", "const Consts<W> k")],
+    "carveout 0 (largest L1)": [(K4_CARVEOUT, "kCarveoutPercent = 0;")],
+    "no carveout preference": [
+        (K4_CARVEOUT, "kCarveoutPercent = cudaSharedmemCarveoutDefault;")],
+    "persistent, 4 CTAs per SM, 255 registers": persistent(4),
+    "persistent, 6 CTAs per SM, 255 registers": persistent(6),
+    "persistent, 8 CTAs per SM, 255 registers": persistent(8),
+}
 K3_PASS = "__launch_bounds__(kThreads, 4)\npass_kernel("
 K3_VARIANTS = {
     "no register cap": [(K3_PASS, "__launch_bounds__(kThreads)\npass_kernel(")],
@@ -107,17 +288,24 @@ K3_VARIANTS = {
 }
 
 
-def build_all(build):
-    """Write and compile every variant; {(kernel, name): (library, ptxas
-    report)} for those that built."""
+KERNELS = {"K2": ("block_scan", K2_VARIANTS), "K3": ("sort", K3_VARIANTS),
+           "K4": ("block_scan2", K4_VARIANTS)}
+
+
+def build_all(build, kernels):
+    """Write and compile every variant of the named kernels; {(kernel,
+    name): (library, ptxas report)} for those that built."""
     import chip_smoke as cs
 
     out = build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     (out / "mont_cc.cuh").write_text(MONT_MUL_CC)
+    (out / "f2_mul_il.cuh").write_text(F2_MUL_IL)
+    (out / "f2_mul_param.cuh").write_text(F2_MUL_PARAM)
+    (out / "persistent.cuh").write_text(PERSISTENT)
     jobs = {}
-    for kernel, src, variants in (("K2", "block_scan", K2_VARIANTS),
-                                  ("K3", "sort", K3_VARIANTS)):
+    for kernel in kernels:
+        src, variants = KERNELS[kernel]
         text = (build.CSRC / f"{src}.cu").read_text()
         for i, (name, edits) in enumerate([("committed", [])]
                                           + list(variants.items())):
@@ -161,110 +349,143 @@ def main() -> int:
     from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
     from zikkurat_algebra_tpu_torch.utils import build
 
+    kernels = sys.argv[1:] or list(KERNELS)
+    unknown = set(kernels) - set(KERNELS)
+    if unknown:
+        print(f"kernel_variants: unknown kernels {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
     t = time.perf_counter()
-    built = build_all(build)
+    built = build_all(build, kernels)
     print(f"# {len(built)} variants built in {time.perf_counter() - t:.1f} s")
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ck = CurveKernels(P.BLS12_381, dev)
-    f, ops, n, m = ck.fp, ck.g1, 1 << 20, 512
-    _, _, pts = cs.tiled_seeds(ck, "g1", n, dev)
+    f, n, m = ck.fp, 1 << 20, 512
     rng = np.random.default_rng(20)
-    k_limbs = torch.from_numpy(cs.rand_canonical(rng, ck.fr.p, ck.fr.W,
-                                                 n)).to(dev)
-    c, nbuckets, gpts, sd, idx = ck.msm("g1").group(k_limbs, pts, None, m)
-    nwin = sd.shape[0]
-    ref = kernel_curve.bucket_scan(ops, *gpts, sd, idx, m, nbuckets)
-    results = []
+    results, library_ms = [], None
 
-    def k2_call(lib):
-        fn = lib.zk_bucket_scan
-        fn.argtypes, fn.restype = kernel_curve._ARGTYPES, ctypes.c_int
+    paths = {}
 
-        def call():
-            b, S = kernel_curve._outputs(ops, sd, m, nbuckets)
-            rc = fn(*(t.data_ptr() for t in (*gpts, sd, idx) + b + S),
-                    kernel_curve._host_words(f.p, f.W), f.n0,
-                    kernel_curve._host_words(f.R % f.p, f.W), ops.b3, f.W,
-                    nwin, n, gpts[0].shape[1], m, nbuckets + 1,
-                    torch.cuda.current_stream().cuda_stream)
+    def path(grp):
+        """The path's grouped inputs at 2^20, made once: (ops, nbuckets,
+        gpts, sd, idx, scalar limbs, c)."""
+        if grp in paths:
+            return paths[grp]
+        _, _, pts = cs.tiled_seeds(ck, grp, n, dev)
+        k_limbs = torch.from_numpy(cs.rand_canonical(rng, ck.fr.p, ck.fr.W,
+                                                     n)).to(dev)
+        c, nbuckets, gpts, sd, idx = ck.msm(grp).group(k_limbs, pts, None, m)
+        ops = ck.g1 if grp == "g1" else ck.g2
+        paths[grp] = ops, nbuckets, gpts, sd, idx, k_limbs, c
+        return paths[grp]
+
+    def occupancy_of(symbol, W, nwin, nk):
+        def query(lib):
+            per, ctas = ctypes.c_int(), ctypes.c_longlong()
+            fn = getattr(lib, symbol)
+            fn.argtypes = [ctypes.c_int] * (2 if W is None else 4) + \
+                [ctypes.c_void_p] * 2
+            head = (nwin, nk) if W is None else (W, nwin, nk, m)
+            rc = fn(*head, ctypes.addressof(per), ctypes.addressof(ctas))
             if rc:
-                raise RuntimeError(f"launch failed: cudaError {rc}")
-            return b, S
-        return call
+                raise RuntimeError(f"{symbol} failed: cudaError {rc}")
+            return per.value, ctas.value
+        return query
 
-    def k2_occupancy(lib):
-        per, ctas = ctypes.c_int(), ctypes.c_longlong()
-        fn = lib.zk_bucket_scan_occupancy
-        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-        fn(f.W, nwin, n, m, ctypes.addressof(per), ctypes.addressof(ctas))
-        return per.value, ctas.value
+    def scan_setup(grp, symbol, argtypes, consts):
+        """(make, occupancy, check) for K2 (g1) or K4 (g2) on the path's
+        inputs; check compares with the committed kernel's output as
+        points."""
+        ops, nbuckets, gpts, sd, idx, _, _ = path(grp)
+        nwin = sd.shape[0]
+        ref = kernel_curve.bucket_scan(ops, *gpts, sd, idx, m, nbuckets)
 
-    keys = ck.msm("g1").digits(k_limbs, c, m).abs()
-    wc, nk = keys.shape
-    pay = torch.arange(nk, dtype=torch.int32, device=dev).expand(
-        1, wc, nk).contiguous()
-    want = kernel_sort.sort_key_val_plain(keys, pay)
-    bits = nbuckets.bit_length()
+        def make(lib):
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
 
-    def k3_call(lib):
-        fn = lib.zk_sort_key_val
-        fn.argtypes, fn.restype = kernel_sort._ARGTYPES, ctypes.c_int
-        size = lib.zk_sort_scratch_bytes
-        size.argtypes, size.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-        scratch = torch.empty(size(wc, nk, bits), dtype=torch.uint8,
-                              device=dev)
-        bufs = [torch.empty_like(t) for t in (keys, pay, keys, pay)]
+            def call():
+                b, S = kernel_curve._outputs(ops, sd, m, nbuckets)
+                rc = fn(*(t.data_ptr() for t in (*gpts, sd, idx) + b + S),
+                        *consts(ops), f.W, nwin, n, gpts[0].shape[-1], m,
+                        nbuckets + 1, torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"launch failed: cudaError {rc}")
+                return b, S
+            return call
 
-        def call():
-            rc = fn(keys.data_ptr(), pay.data_ptr(),
-                    *(t.data_ptr() for t in bufs), scratch.data_ptr(), wc,
-                    nk, 1, bits, torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(f"launch failed: cudaError {rc}")
-            return bufs[0], bufs[1]
-        return call
+        def check(got):
+            return max(cs.affine_diff(ops, g, w) for g, w in zip(got, ref))
+        return make, occupancy_of(symbol + "_occupancy", f.W, nwin, n), check
 
-    def k3_occupancy(lib):
-        per, ctas = ctypes.c_int(), ctypes.c_longlong()
-        fn = lib.zk_sort_occupancy
-        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-        fn(wc, nk, ctypes.addressof(per), ctypes.addressof(ctas))
-        return per.value, ctas.value
+    setups = {}
+    if "K2" in kernels:
+        setups["K2"] = scan_setup(
+            "g1", "zk_bucket_scan", kernel_curve._ARGTYPES,
+            lambda ops: (kernel_curve._host_words(f.p, f.W), f.n0,
+                         kernel_curve._host_words(f.R % f.p, f.W), ops.b3))
+    if "K3" in kernels:
+        _, nbuckets, _, _, _, k_limbs, c = path("g1")
+        keys = ck.msm("g1").digits(k_limbs, c, m).abs()
+        wc, nk = keys.shape
+        pay = torch.arange(nk, dtype=torch.int32, device=dev).expand(
+            1, wc, nk).contiguous()
+        want = kernel_sort.sort_key_val_plain(keys, pay)
+        bits = nbuckets.bit_length()
 
-    for kernel, variants, make, occupancy, reps in (
-            ("K2", K2_VARIANTS, k2_call, k2_occupancy, 3),
-            ("K3", K3_VARIANTS, k3_call, k3_occupancy, 20)):
-        names = ["committed", *variants, "committed"]
-        for name in names:
+        def k3_call(lib):
+            fn = lib.zk_sort_key_val
+            fn.argtypes, fn.restype = kernel_sort._ARGTYPES, ctypes.c_int
+            size = lib.zk_sort_scratch_bytes
+            size.argtypes, size.restype = [ctypes.c_int] * 3, \
+                ctypes.c_longlong
+            scratch = torch.empty(size(wc, nk, bits), dtype=torch.uint8,
+                                  device=dev)
+            bufs = [torch.empty_like(t) for t in (keys, pay, keys, pay)]
+
+            def call():
+                rc = fn(keys.data_ptr(), pay.data_ptr(),
+                        *(t.data_ptr() for t in bufs), scratch.data_ptr(), wc,
+                        nk, 1, bits, torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"launch failed: cudaError {rc}")
+                return bufs[0], bufs[1]
+            return call
+
+        setups["K3"] = (k3_call, occupancy_of("zk_sort_occupancy", None, wc,
+                                              nk),
+                        lambda got: cs.max_limb_diff(got, want))
+        library_ms = cs.time_ms(
+            lambda: kernel_sort.sort_key_val_plain(keys, pay), 20, dev)
+        print(f"# torch.sort(stable=True) + gather: {library_ms:.4f} ms")
+    if "K4" in kernels:
+        setups["K4"] = scan_setup(
+            "g2", "zk_bucket_scan2", kernel_curve._ARGTYPES2,
+            lambda ops: kernel_curve._fp2_consts(f, ops.b3, ck.tower.qnr))
+
+    for kernel in kernels:
+        make, occupancy, check = setups[kernel]
+        reps = 20 if kernel == "K3" else 3
+        for name in ["committed", *KERNELS[kernel][1], "committed"]:
             if (kernel, name) not in built:
                 continue
             lib, ptxas = built[(kernel, name)]
             call = make(lib)
-            got = call()
-            torch.cuda.synchronize()
-            if kernel == "K2":
-                err = max(cs.affine_diff(ops, g, w) for g, w in zip(got, ref))
-            else:
-                err = cs.max_limb_diff(got, want)
+            err = check(call())
             ms = cs.time_ms(call, reps, dev)
             per_sm, ctas = occupancy(lib)
             row = dict(kernel=kernel, variant=name, ms=ms, max_abs_err=err,
                        blocks_per_sm=per_sm, ctas=ctas,
                        waves=ctas / (per_sm * sms) if per_sm else None,
-                       ptxas={k: {"registers": r, "spill_bytes": s}
-                              for k, (r, s) in ptxas.items()})
+                       ptxas=cs.ptxas_rows(ptxas))
             results.append(row)
             print(f"# {kernel} {name}: {ms:.4f} ms, max |diff| {err}, "
                   f"{per_sm} CTAs per SM, {row['waves']} waves; ptxas "
-                  + "; ".join(f"{k}: {r} registers, {s} B spilled"
-                              for k, (r, s) in ptxas.items()), flush=True)
+                  + cs.ptxas_text(ptxas), flush=True)
             if err:
                 raise AssertionError(f"{kernel} {name} differs from the "
                                      "committed kernel")
-    library_ms = cs.time_ms(lambda: kernel_sort.sort_key_val_plain(keys, pay),
-                            20, dev)
-    print(f"# torch.sort(stable=True) + gather: {library_ms:.4f} ms")
     card = cs.smi("name,power.limit")
     print(card)
     print(json.dumps({"card": card, "library_ms": library_ms,

@@ -1,6 +1,6 @@
 """Kernels K1 to K5 on the card against their plain torch versions (K2
-as points, after `to_affine`; the others limb for limb), small G1 and G2
-MSMs and NTTs on the card against the oracle.
+and K4 as points, after `to_affine`; the others limb for limb), small G1
+and G2 MSMs and NTTs on the card against the oracle.
 
 Every test here is marked `gpu` and skips, from inside the `cuda_device`
 fixture, on a host without a CUDA card.  The file imports neither JAX nor
@@ -41,10 +41,11 @@ def make_scan_inputs(f, nwin, nblk, m, npts, nbuckets, seed, fp2=False,
     with long runs (segments spanning blocks), random signs, distinct
     point indices, and points of which some are at infinity.  `steps`:
     the increments of |digit| along a row, drawn uniformly.  The
-    coordinates are random field values, or, with an oracle `group`,
-    points of that group (k G for a random k, then one G more each):
-    the complete formulas are associative only on the curve.  Returns
-    numpy arrays and the coordinates as Python ints (pairs for fp2)."""
+    coordinates are random field values (random pairs for fp2), or,
+    with an oracle `group` (G1, or G2 for fp2), points of that group
+    (k G for a random k, then one G more each): the complete formulas
+    are associative only on the curve.  Returns numpy arrays and the
+    coordinates as Python ints (pairs for fp2)."""
     rng = np.random.default_rng(seed)
     n = nblk * m
     steps = rng.choice(list(steps), size=(nwin, n))
@@ -62,7 +63,7 @@ def make_scan_inputs(f, nwin, nblk, m, npts, nbuckets, seed, fp2=False,
         for i in range(npts):
             xs[i], ys[i] = pt
             pt = group.add(pt, group.gen)
-    if fp2:
+    elif fp2:
         xs, ys = ([(c, (int(v) << 120 | c) % f.p)
                    for c, v in zip(cs, rng.integers(0, 1 << 62, npts))]
                   for cs in (xs, ys))
@@ -97,23 +98,29 @@ def assert_same_points(ops, got, want):
     assert torch.equal(ga[2], wa[2])
     live = ~wa[2]
     for g, w in zip(ga[:2], wa[:2]):
-        assert torch.equal(g[:, live], w[:, live])
+        assert torch.equal(g[..., live], w[..., live])
 
 
-def check_bucket_scan(ck, xs, ys, inf, sd, idx, m, nbuckets):
-    """K2 on the card against its plain version, buckets and trailers
-    compared as points; its counter steps by one."""
-    f = ck.fp
-    args = (f.encode(xs), f.encode(ys), torch.from_numpy(inf).cuda(),
+def check_bucket_scan(ck, xs, ys, inf, sd, idx, m, nbuckets, grp="g1"):
+    """K2 (g1) or K4 (g2) on the card against its plain version, buckets
+    and trailers compared as points; its counter steps by one, the other
+    kernel's not at all."""
+    ops, enc = ((ck.g1, ck.fp.encode) if grp == "g1"
+                else (ck.g2, ck.tower.encode_fp2))
+    mine, other = ((kernel_curve.bucket_scan, kernel_curve.bucket_scan2)
+                   if grp == "g1" else
+                   (kernel_curve.bucket_scan2, kernel_curve.bucket_scan))
+    args = (enc(xs), enc(ys), torch.from_numpy(inf).cuda(),
             torch.from_numpy(sd).cuda(), torch.from_numpy(idx).cuda(), m,
             nbuckets)
-    before = kernel_curve.bucket_scan.launches
-    got = kernel_curve.bucket_scan(ck.g1, *args)
+    before, other_before = mine.launches, other.launches
+    got = kernel_curve.bucket_scan(ops, *args)
     torch.cuda.synchronize()
-    assert kernel_curve.bucket_scan.launches == before + 1
-    want = kernel_curve.bucket_scan_plain(ck.g1.plain(), *args)
+    assert mine.launches == before + 1 and other.launches == other_before
+    want = kernel_curve.bucket_scan_plain(ops.plain(), *args)
     for g, w in zip(got, want):
-        assert_same_points(ck.g1, g, w)
+        assert g[0].shape == w[0].shape
+        assert_same_points(ops, g, w)
 
 
 @pytest.mark.gpu
@@ -130,13 +137,15 @@ def test_bucket_scan_kernel_vs_plain(cuda_device, curve):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["long_runs_512", "m1", "m24", "m7",
+@pytest.mark.parametrize("case", ["long_runs_512", "m1", "m24", "m7", "m3",
                                   "infinite_sub_lane", "distinct_digits"])
-def test_bucket_scan_kernel_cases(cuda_device, case):
-    """K2's sub-lanes and their combine against the plain version: runs
-    that cross sub-lanes and blocks at block 512, blocks with fewer
-    positions than sub-lanes (1, 7) or not a multiple of them (24), a
-    sub-lane whose points are all at infinity, every position its own
+@pytest.mark.parametrize("grp", ["g1", "g2"])
+def test_bucket_scan_kernel_cases(cuda_device, grp, case):
+    """K2's (g1, 8 sub-lanes) and K4's (g2, 4 sub-lanes) sub-lanes and
+    their combine against the plain version: runs that cross sub-lanes
+    and blocks at block 512, blocks with fewer positions than sub-lanes
+    (1 and 3; 7 for K2) or not a multiple of them (3 and 7; 24 for K2),
+    a sub-lane whose points are all at infinity, every position its own
     digit."""
     ck = CurveKernels(P.BLS12_381, device=cuda_device)
     nwin, nblk, m, nbuckets, npts = 2, 6, 24, 40, 700
@@ -147,17 +156,21 @@ def test_bucket_scan_kernel_cases(cuda_device, case):
         nblk, m = 90, 1
     elif case == "m7":
         nblk, m = 20, 7
-    xs, ys, inf, sd, idx = make_scan_inputs(ck.fp, nwin, nblk, m, npts,
-                                            nbuckets, seed=len(case),
-                                            steps=steps, group=ck.oracle_g1)
+    elif case == "m3":
+        nblk, m = 40, 3
+    xs, ys, inf, sd, idx = make_scan_inputs(
+        ck.fp, nwin, nblk, m, npts, nbuckets, seed=len(case), steps=steps,
+        fp2=grp == "g2", group=ck.oracle_g1 if grp == "g1" else ck.oracle_g2)
     if case == "infinite_sub_lane":
+        # sub-lane 1 of block 1: K2 runs 8 sub-lanes of 3, K4 4 of 6
+        lo, hi = (m + 3, m + 6) if grp == "g1" else (m + 6, m + 12)
         inf[:] = False
-        inf[idx[0, m + 3:m + 6]] = True          # sub-lane 1 of block 1
+        inf[idx[0, lo:hi]] = True
     if case == "distinct_digits":
         n = nblk * m
         sd = (np.arange(1, n + 1) * np.where(sd < 0, -1, 1)).astype(np.int32)
         nbuckets = n
-    check_bucket_scan(ck, xs, ys, inf, sd, idx, m, nbuckets)
+    check_bucket_scan(ck, xs, ys, inf, sd, idx, m, nbuckets, grp)
 
 
 @pytest.mark.gpu
@@ -240,27 +253,15 @@ def test_sort_kernel_edge_cases(cuda_device, case):
 @pytest.mark.parametrize("curve", [P.BLS12_381, P.BN128],
                          ids=lambda c: c.name)
 def test_bucket_scan2_kernel_vs_plain(cuda_device, curve):
-    """Kernel K4 equals its plain version limb for limb over Fp2: buckets
-    and trailers, with sign, infinity and restart cases."""
+    """Kernel K4 equals its plain version over Fp2 after `to_affine`:
+    buckets and trailers of G2 points on the curve, with sign, infinity
+    and restart cases."""
     ck = CurveKernels(curve, device=cuda_device)
-    tw = ck.tower
     nwin, nblk, m, nbuckets = 3, 40, 16, 60
     xs, ys, inf, sd, idx = make_scan_inputs(ck.fp, nwin, nblk, m, 700,
-                                            nbuckets, seed=11, fp2=True)
-    args = (tw.encode_fp2(xs), tw.encode_fp2(ys),
-            torch.from_numpy(inf).cuda(), torch.from_numpy(sd).cuda(),
-            torch.from_numpy(idx).cuda(), m, nbuckets)
-    before = kernel_curve.bucket_scan2.launches
-    k2_before = kernel_curve.bucket_scan.launches
-    got = kernel_curve.bucket_scan(ck.g2, *args)
-    torch.cuda.synchronize()
-    assert kernel_curve.bucket_scan2.launches == before + 1
-    assert kernel_curve.bucket_scan.launches == k2_before
-    want = kernel_curve.bucket_scan_plain(ck.g2.plain(), *args)
-    for g, w in zip(got, want):
-        for gc, wc in zip(g, w):
-            assert gc.shape == (ck.fp.W, 2) + gc.shape[2:]
-            assert torch.equal(gc, wc)
+                                            nbuckets, seed=11, fp2=True,
+                                            group=ck.oracle_g2)
+    check_bucket_scan(ck, xs, ys, inf, sd, idx, m, nbuckets, "g2")
 
 
 @pytest.mark.gpu

@@ -276,11 +276,11 @@ __device__ __forceinline__ void mul_nr(uint32_t (&r)[W],
 // r = a b, Karatsuba with three Montgomery products (the recipe of
 // ops/tower.py QuadExt.mul_list): t0 = a0 b0, t1 = a1 b1,
 // t2 = (a0 + a1)(b0 + b1); c0 = t0 + qnr t1, c1 = t2 - (t0 + t1).
-// r may alias a or b.  Not inlined: a caller that holds several Fp2
-// values (K4's madd) keeps them in its stack frame across the call, and
-// the product's CIOS temporaries get the registers (see block_scan2.cu).
+// r may alias a or b.  K4 calls it through a function that is not
+// inlined (block_scan2.cu), so that the madd's Fp2 values stay in the
+// stack frame across the call and the CIOS temporaries get the registers.
 template <int W>
-__device__ __noinline__ void f2_mul(Fp2<W>& r, const Fp2<W>& a,
+__device__ __forceinline__ void f2_mul(Fp2<W>& r, const Fp2<W>& a,
                                        const Fp2<W>& b,
                                        const uint32_t (&p)[W], uint32_t n0,
                                        int qnr) {

@@ -19,10 +19,10 @@ wherever the digit changes.  It writes only what the MSM reads afterwards:
 
 Buckets that no tail writes stay at infinity.  The plain version walks
 the positions in order, one lane per block.  K2 splits each block among
-eight sub-lanes and joins their sums with complete additions, so its
-buckets and trailers are the same points as the plain version's in other
-projective coordinates: they are compared after `to_affine`.  K4 keeps one
-lane per block and equals the plain version limb for limb.
+eight sub-lanes and K4 among four, and both join the sub-lanes' sums
+with complete additions, so their buckets and trailers are the same
+points as the plain version's in other projective coordinates: they are
+compared after `to_affine`.
 
 `bucket_scan` dispatches on the coordinates' rank: Fp coordinates
 (W, npts) go to K2, Fp2 coordinates (W, 2, npts) to K4 (`bucket_scan2`).
@@ -107,7 +107,7 @@ _ARGTYPES = [ctypes.c_void_p] * 12 + [
 
 def _host_words(v: int, W: int):
     """v as W 32-bit words in host memory, least significant first (K2
-    takes its field constants as kernel parameters)."""
+    and K4 take their field constants as kernel parameters)."""
     return (ctypes.c_uint32 * W)(*((v >> (32 * i)) & 0xFFFFFFFF
                                    for i in range(W)))
 
@@ -166,17 +166,25 @@ def bucket_scan(ops: ProjCurveOps, x, y, inf, sd, idx, m: int,
 bucket_scan.launches = 0
 
 
+def _occupancy(src: str, symbol: str, W: int, nwin: int, n: int, m: int):
+    per_sm, ctas = ctypes.c_int(), ctypes.c_longlong()
+    fn = build.load(src, symbol, [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    rc = fn(W, nwin, n, m, ctypes.addressof(per_sm), ctypes.addressof(ctas))
+    if rc != 0:
+        raise RuntimeError(f"{symbol} failed: cudaError {rc}")
+    return per_sm.value, ctas.value
+
+
 def bucket_scan_occupancy(W: int, nwin: int, n: int, m: int):
     """(resident CTAs per SM, CTAs launched) of K2 at W limbs for nwin
     windows of n positions at block m, on the current card."""
-    per_sm, ctas = ctypes.c_int(), ctypes.c_longlong()
-    fn = build.load("block_scan", "zk_bucket_scan_occupancy",
-                    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
-    rc = fn(W, nwin, n, m, ctypes.addressof(per_sm), ctypes.addressof(ctas))
-    if rc != 0:
-        raise RuntimeError(f"bucket_scan occupancy query failed: cudaError "
-                           f"{rc}")
-    return per_sm.value, ctas.value
+    return _occupancy("block_scan", "zk_bucket_scan_occupancy", W, nwin, n, m)
+
+
+def bucket_scan2_occupancy(W: int, nwin: int, n: int, m: int):
+    """The same for K4 (W limbs per Fp2 component)."""
+    return _occupancy("block_scan2", "zk_bucket_scan2_occupancy", W, nwin, n,
+                      m)
 
 
 _ARGTYPES2 = [ctypes.c_void_p] * 12 + [
@@ -184,6 +192,15 @@ _ARGTYPES2 = [ctypes.c_void_p] * 12 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_void_p,
 ]
+
+
+def _fp2_consts(fp, b3, qnr: int):
+    """K4's constants as host words: p, n0, the Montgomery one, b3 (c0
+    then c1, Montgomery form) and qnr."""
+    W = fp.W
+    b3m = [c * fp.R % fp.p for c in b3]
+    return (_host_words(fp.p, W), fp.n0, _host_words(fp.R % fp.p, W),
+            _host_words(b3m[0] | b3m[1] << (32 * W), 2 * W), qnr)
 
 
 def bucket_scan2(ops: ProjCurveOps, x, y, inf, sd, idx, m: int,
@@ -208,13 +225,11 @@ def bucket_scan2(ops: ProjCurveOps, x, y, inf, sd, idx, m: int,
     buckets, S = _outputs(ops, sd, m, nbuckets)
     if nwin * n == 0:
         return buckets, S
-    b3 = f.const(ops.b3).contiguous()                       # (W, 2)
     fn = build.load("block_scan2", "zk_bucket_scan2", _ARGTYPES2)
     rc = fn(
-        *(t.data_ptr() for t in tensors + buckets + S + (fp.p32,)),
-        fp.n0, fp.one_limbs.data_ptr(), b3.data_ptr(), f.qnr, f.W, nwin, n,
-        x.shape[-1], m, nbuckets + 1,
-        torch.cuda.current_stream(dev).cuda_stream,
+        *(t.data_ptr() for t in tensors + buckets + S),
+        *_fp2_consts(fp, ops.b3, f.qnr), f.W, nwin, n, x.shape[-1], m,
+        nbuckets + 1, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"bucket_scan2 kernel launch failed: cudaError {rc}")
