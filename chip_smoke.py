@@ -4,15 +4,18 @@
 
 The main paths are the BLS12-381 G2 and G1 Pippenger MSMs of 2^20 points
 (zikkurat_algebra_tpu_torch, `CurveKernels(...).msm(grp).msm_std`, c from
-`window_size`, block 512), and the BLS12-381 Fr NTT, polynomial and group
-FFT path (`NTTDomain`, `PolyOps`, `GroupFFT`).  The script
+`window_size`, block 512), loading a compressed SRS (`decompress_g1`,
+`decompress_g2`, `is_in_subgroup`, `Field.sqrt`), and the BLS12-381 Fr
+NTT, polynomial and group FFT path (`NTTDomain`, `PolyOps`, `GroupFFT`).
+The script
 
 1. prints the card and its power limit, builds the five CUDA kernels from
    the sources in this checkout (one nvcc per source, in parallel) and
    prints the registers, spills and stack frames `-Xptxas -v` reports;
 2. holds kernel K1 (Montgomery product) against its plain torch version
-   on 2^20 random elements of BLS12-381 Fp, BLS12-381 Fr and BN128 Fp:
-   exact limb equality; times both;
+   on 2^20 random elements of BLS12-381 Fp, BLS12-381 Fr and BN128 Fp,
+   and at the widths W = 1, 2, 3, 4, 8 of M31, goldilocks, 2^64 + 13,
+   M127 and secp256k1's base field: exact limb equality; times both;
 3. G2 path, on the 1024 committed seeds of
    bench_data/seeds_BLS12_381_g2.npz (tiled) and random scalars:
    a. K3 (grouping sort) against its plain version on the path's own
@@ -36,7 +39,20 @@ FFT path (`NTTDomain`, `PolyOps`, `GroupFFT`).  The script
    so its projective coordinates differ from the plain version's), with
    its resident CTAs per SM and waves; then the MSM (K1, K2 and K3 must
    be launched);
-5. NTT path, BLS12-381 Fr at 2^20:
+5. SRS path (loading a compressed BLS12-381 SRS), every product on K1:
+   a. the G1 seeds tiled to 2^20, compressed (`compress_g1`) and
+      decompressed on the card (`decompress_g1`): equal to the seeds, a
+      2^6 prefix equal to the oracle's decompression, four x with no
+      point reported invalid; `g1.is_in_subgroup` (GLV) true on all
+      2^20, `is_in_subgroup_slow` agreeing on 2^10, and both false on
+      four oracle points outside the subgroup;
+   b. the same for 2^12 G2 points (`decompress_g2` through `fp2_sqrt`,
+      the subgroup test [r] P);
+   c. `Field.sqrt` of 2^20 squares in BLS12-381 Fp (p = 3 mod 4) and Fr
+      (Tonelli-Shanks, two-adicity 32): every root squared equals the
+      square, a non-residue reports no root;
+   each call's K1 launches (> 0) and host-clock ms of a second call;
+6. NTT path, BLS12-381 Fr at 2^20:
    a. K5 (NTT butterfly stage): one full radix-2 NTT of random inputs
       through the kernel and through its plain version, every stage
       equal limb for limb; times per stage and per NTT;
@@ -224,14 +240,30 @@ def phase_build():
     return regs
 
 
+def k1_fields():
+    """The fields K1 is held at: BLS12-381 Fp and Fr and BN128 Fp of the
+    MSM and NTT paths, then one prime per width the SRS path's fields do
+    not reach (W = 1, 2, 3, 4) and a 256-bit curve field outside the
+    three families (W = 8)."""
+    from zikkurat_algebra_tpu_torch import params as P
+
+    return (P.BLS12_381_FP, P.BLS12_381_FR, P.BN128_FP,
+            P.TEST_PRIMES["M31"], P.TEST_PRIMES["goldilocks"],
+            P.TEST_PRIMES["P64+"], P.TEST_PRIMES["M127"],
+            P.curve_db_field("Secp256k1", "base"))
+
+
 def phase_k1(device, n, int_rate, rng):
+    """K1 against its plain version on n random elements of each of
+    `k1_fields()`, exact limb equality; times both and the bound.  Returns
+    BLS12-381 Fp's row with a `by_width` list of every field's numbers."""
     import torch
     from zikkurat_algebra_tpu_torch import params as P
     from zikkurat_algebra_tpu_torch.ops import kernel_field
     from zikkurat_algebra_tpu_torch.ops.field import Field
 
-    row = None
-    for prm in (P.BLS12_381_FP, P.BLS12_381_FR, P.BN128_FP):
+    row, by_width = None, []
+    for prm in k1_fields():
         f = Field(prm, device)
         a = torch.from_numpy(rand_canonical(rng, f.p, f.W, n)).to(device)
         b = torch.from_numpy(rand_canonical(rng, f.p, f.W, n)).to(device)
@@ -247,12 +279,16 @@ def phase_k1(device, n, int_rate, rng):
         nbytes = 3 * 4 * f.W * n
         nops = n * (4 * f.W * f.W + f.W)
         b_ms, b_by = bound(nbytes, nops, int_rate)
-        log(f"# K1 mont_mul {prm.name} n={n}: equal to plain; kernel "
+        log(f"# K1 mont_mul {prm.name} W={f.W} n={n}: equal to plain; kernel "
             f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
             f"({b_by}: {nbytes} B, {nops} IMAD)")
+        by_width.append(dict(W=f.W, field=prm.name, n=n, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             max_abs_err=err))
         if prm is P.BLS12_381_FP:
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        max_abs_err=err, shape=f"({f.W}, {n}) {prm.name}")
+    row["by_width"] = by_width
     return row
 
 
@@ -714,6 +750,135 @@ def phase_gfft(ck, device, log_n, block, rng):
     return launches, {"fft": fft_ms, "ifft": ifft_ms}
 
 
+def oracle_decompress(og, sqrt, x, par):
+    """The oracle's point with x and y's parity bit `par` (y of c0, or of
+    c1 where c0 = 0, over Fp2), or None where x^3 + b is no square."""
+    f = og.f
+    y = sqrt(f.add(f.mul(f.mul(x, x), x), og.b))
+    if y is None:
+        return None
+    sign = y if isinstance(y, int) else (y[0] if y[0] else y[1])
+    return (x, y if sign % 2 == par else f.neg(y))
+
+
+def outside_points(og, sqrt, rnd, k):
+    """k points on the curve outside the r-subgroup, from the oracle."""
+    f, out = og.f, []
+    while len(out) < k:
+        x = rnd()
+        y = sqrt(f.add(f.mul(f.mul(x, x), x), og.b))
+        if y is not None and og.scalar_mul_unreduced(og.r, (x, y)) is not None:
+            out.append((x, y))
+    return out
+
+
+def phase_srs(ck, device, log_g1, log_g2, log_sqrt, rng):
+    """Loading a compressed SRS: the tiled G1 and G2 seeds compressed,
+    decompressed on the card (equal to the seeds; a prefix against the
+    oracle; x with no point reports invalid), the subgroup tests (GLV for
+    G1, [r] P for G2; held against the slow test on a prefix and on
+    points outside the subgroup), then Field.sqrt on squares of BLS12-381
+    Fp and Fr.  Each path call runs once counted and checked, then once
+    timed on the host clock."""
+    import random
+
+    import torch
+
+    og1, og2 = ck.oracle_g1, ck.oracle_g2
+    fo, f2o = og1.f, og2.f
+    r = random.Random(int(rng.integers(1 << 62)))
+    per, times = {}, {}
+    total = {}
+
+    def call(name, fn):
+        before = {k: c.launches for k, c in counters().items()}
+        out = fn()
+        sync(device)
+        per[name] = {k: c.launches - before[k] for k, c in counters().items()
+                     if c.launches != before[k]}
+        if device.type == "cuda" and not per[name].get("mont_mul"):
+            raise AssertionError(f"{name}: K1 was not launched")
+        for k, v in per[name].items():
+            total[k] = total.get(k, 0) + v
+        _, times[name] = timed(fn, device)
+        return out
+
+    def check_group(grp, n, enc, dec_x, comp, decomp, ops, og, osqrt, ornd):
+        _, _, pts = tiled_seeds(ck, grp, n, device)
+        x, flags = comp(pts)
+        (xd, yd, infd), valid = call(f"decompress_{grp}",
+                                     lambda: decomp(x, flags))
+        live = ~pts[2]
+        if not (bool(valid.all()) and torch.equal(infd, pts[2])
+                and all(torch.equal(u[..., live], v[..., live])
+                        for u, v in zip((xd, yd), pts[:2]))):
+            raise AssertionError(f"decompress_{grp} differs from the seeds")
+        decode = ck.decode_g1 if grp == "g1" else ck.decode_g2
+        want = [None if fl & 2 else oracle_decompress(og, osqrt, xi, fl & 1)
+                for xi, fl in zip(dec_x(x[..., :64]), flags[:64].tolist())]
+        if decode(tuple(t[..., :64] for t in (xd, yd, infd))) != want:
+            raise AssertionError(f"decompress_{grp} prefix differs from the "
+                                 "oracle")
+        bad = []
+        while len(bad) < 4:
+            xb = ornd()
+            if osqrt(og.f.add(og.f.mul(og.f.mul(xb, xb), xb), og.b)) is None:
+                bad.append((xb, xb))
+        xb, _, _ = enc(bad)
+        _, vb = decomp(xb, torch.zeros(4, dtype=torch.int32, device=device))
+        if bool(vb.any()):
+            raise AssertionError(f"decompress_{grp}: an x with no point "
+                                 "reported valid")
+        P = ops.from_affine((xd, yd, infd))
+        name = f"is_in_subgroup_{grp}"
+        inside = call(name, lambda: ops.is_in_subgroup(P))
+        m = min(n, 1 << 10)
+        slow = ops.is_in_subgroup_slow(tuple(c[..., :m] for c in P))
+        outs = ops.from_affine(enc(outside_points(og, osqrt, ornd, 4)))
+        if not (bool(inside.all()) and bool(slow.all())
+                and not bool(ops.is_in_subgroup(outs).any())
+                and not bool(ops.is_in_subgroup_slow(outs).any())):
+            raise AssertionError(f"{name} wrong: seeds in {bool(inside.all())}"
+                                 f", slow on 2^{m.bit_length() - 1} "
+                                 f"{bool(slow.all())}, outside points out")
+        log(f"# SRS {grp} 2^{n.bit_length() - 1}: decompress equals the seeds "
+            f"(2^6 prefix equals the oracle, 4 x with no point invalid); "
+            f"{name} true on all, the slow test agrees on 2^"
+            f"{m.bit_length() - 1}, 4 points outside the subgroup rejected "
+            f"by both; launches {json.dumps(per[f'decompress_{grp}'])}, "
+            f"{json.dumps(per[name])}")
+
+    reset_counts()
+    check_group("g1", 1 << log_g1, ck.encode_g1, ck.fp.decode,
+                ck.compress_g1, ck.decompress_g1, ck.g1, og1, fo.sqrt,
+                lambda: r.randrange(fo.p))
+    check_group("g2", 1 << log_g2, ck.encode_g2, ck.tower.decode_fp2,
+                ck.compress_g2, ck.decompress_g2, ck.g2, og2, f2o.sqrt,
+                lambda: (r.randrange(fo.p), r.randrange(fo.p)))
+    n = 1 << log_sqrt
+    for f in (ck.fp, ck.fr):
+        a = torch.from_numpy(rand_canonical(rng, f.p, f.W, n)).to(device)
+        sq = f.sqr(a)
+        root, ok = call(f"sqrt {f.params.name}", lambda: f.sqrt(sq))
+        if not (bool(ok.all()) and torch.equal(f.sqr(root), sq)):
+            raise AssertionError(f"sqrt {f.params.name}: a root squared is "
+                                 "not the square")
+        if bool(f.sqrt(f.encode([f.params.multiplicative_gen]))[1].any()):
+            raise AssertionError(f"sqrt {f.params.name}: a non-residue "
+                                 "reported square")
+        got, av = f.decode(root[:, :64]), f.decode(a[:, :64])
+        if any(g not in (v, (f.p - v) % f.p) for g, v in zip(got, av)):
+            raise AssertionError(f"sqrt {f.params.name}: a root is not +-a")
+        log(f"# SRS sqrt {f.params.name} 2^{log_sqrt}: every root squared is "
+            f"the square, a non-residue reports no root, 2^6 roots are +-a; "
+            f"launches {json.dumps(per[f'sqrt {f.params.name}'])}")
+    launches = read_counts(device, "SRS", ())
+    log("# SRS ms per call (host clock, second call, device synchronised): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+    counts = {k: total.get(k, 0) for k in launches}
+    return counts, dict(ms=times, launches_per_call=per)
+
+
 def cols_to_limbs(cols: np.ndarray) -> np.ndarray:
     """(W, N) uint64 column sums -> (W + 2, N) int32 limbs of the values."""
     W, N = cols.shape
@@ -739,7 +904,8 @@ def tiled_seeds(ck, grp, n, device):
 
 
 def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
-        block: int = 512, ntt_log_n: int = 20, gfft_log_n: int = 14):
+        block: int = 512, ntt_log_n: int = 20, gfft_log_n: int = 14,
+        srs_log_n: int = 20, srs_g2_log_n: int = 12):
     import torch
     from zikkurat_algebra_tpu_torch import params as P
     from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
@@ -785,6 +951,10 @@ def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
     launches["g1"] = phase_msm(ck, "g1", k_np, pts, seeds, nseed, device,
                                block, ("mont_mul", "sort_key_val",
                                        "bucket_scan"))
+
+    # the SRS path: decompression, subgroup checks, square roots
+    launches["srs"], meas["mont_mul"]["srs_path"] = phase_srs(
+        ck, device, srs_log_n, srs_g2_log_n, srs_log_n, rng)
 
     # the NTT, polynomial and group-FFT path
     meas["ntt_stage"] = phase_k5(device, ntt_log_n, int_rate, rng)

@@ -20,6 +20,7 @@ from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
 from zikkurat_algebra_tpu_torch.ops.field import Field
 from zikkurat_algebra_tpu_torch.utils import build, convert
 
+pytest_plugins = ["memory_guard"]
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -25,6 +25,7 @@ from zikkurat_algebra_tpu_torch.ops import kernel_curve
 from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
 from test_torch_gpu import make_scan_inputs
 
+pytest_plugins = ["memory_guard"]
 torch.set_num_threads(1)
 
 CURVES = [(P.BLS12_381, JP.BLS12_381), (P.BN128, JP.BN128)]

@@ -20,6 +20,7 @@ from zikkurat_algebra_tpu_torch.ops import kernel_field
 from zikkurat_algebra_tpu_torch.ops import limbs as lb
 from zikkurat_algebra_tpu_torch.ops.field import Field
 
+pytest_plugins = ["memory_guard"]
 torch.set_num_threads(1)
 
 N = 48

@@ -21,6 +21,7 @@ from zikkurat_algebra_tpu_torch.ops.gfft import (GroupFFT, get_group_fft,
                                                  to_digits)
 from zikkurat_algebra_tpu_torch.oracle.ntt import intt, ntt
 
+pytest_plugins = ["memory_guard"]
 torch.set_num_threads(1)
 
 

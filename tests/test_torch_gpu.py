@@ -1,6 +1,7 @@
 """Kernels K1 to K5 on the card against their plain torch versions (K2
-and K4 as points, after `to_affine`; the others limb for limb), small G1
-and G2 MSMs and NTTs on the card against the oracle.
+and K4 as points, after `to_affine`; the others limb for limb; K1 at
+every width it takes), small G1 and G2 MSMs and NTTs and the G1
+decompression and subgroup test on the card against the oracle.
 
 Every test here is marked `gpu` and skips, from inside the `cuda_device`
 fixture, on a host without a CUDA card.  The file imports neither JAX nor
@@ -10,6 +11,7 @@ the JAX package, so on the H100 host it runs without them:
         -o addopts="" -p no:cacheprovider -q
 """
 
+import os
 import random
 
 import numpy as np
@@ -19,12 +21,18 @@ import torch
 from zikkurat_algebra_tpu_torch import params as P
 from zikkurat_algebra_tpu_torch.ops import (kernel_curve, kernel_field,
                                             kernel_ntt, kernel_sort)
+from zikkurat_algebra_tpu_torch.ops import limbs as lb
 from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
 from zikkurat_algebra_tpu_torch.ops.field import Field
 from zikkurat_algebra_tpu_torch.ops.ntt import NTTDomain
 from zikkurat_algebra_tpu_torch.oracle.ntt import intt as oracle_intt
 from zikkurat_algebra_tpu_torch.oracle.ntt import ntt as oracle_ntt
+from zikkurat_algebra_tpu_torch.utils.convert import load_jax_seed_points
 
+SEEDS_G1 = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "bench_data", "seeds_BLS12_381_g1.npz")
+
+pytest_plugins = ["memory_guard"]
 torch.set_num_threads(1)
 
 
@@ -88,6 +96,61 @@ def test_mont_mul_kernel_vs_plain(cuda_device, params):
     assert kernel_field.mont_mul.launches == before + 1
     assert torch.equal(got, kernel_field.mont_mul_plain(a, b, f))
     assert f.decode(got) == [x * y % f.p for x, y in zip(vals, vals[::-1])]
+
+
+def corner_values(p: int, W: int):
+    """0, 1, p - 1 and its neighbours, (p +- 1) / 2, 2^(32 k) +- 1 and
+    all-ones limbs 2^(32 k) - 1 for k = 1 .. W, reduced mod p."""
+    vals = [0, 1, 2, p - 1, p - 2, (p - 1) // 2, (p + 1) // 2]
+    for k in range(1, W + 1):
+        vals += [((1 << (32 * k)) + d) % p for d in (-1, 0, 1)]
+    return vals
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(P.TEST_PRIMES))
+def test_mont_mul_kernel_widths(cuda_device, name):
+    """K1 at W = 1, 2, 3, 4 and 8 on the primes at the limb boundaries
+    (above R/2: goldilocks, 2^255 + 95) equals its plain version limb for
+    limb and the products mod p, on corner values."""
+    f = Field(P.TEST_PRIMES[name], device=cuda_device)
+    rng = np.random.default_rng(f.W)
+    vals = corner_values(f.p, f.W)
+    vals += [int(v) % f.p for v in rng.integers(0, 1 << 62, 64 - len(vals))]
+    a = f.encode(vals, mont=False)
+    b = f.encode(vals[::-1], mont=False)
+    got = kernel_field.mont_mul(a, b, f)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernel_field.mont_mul_plain(a, b, f))
+    assert lb.limbs_to_ints(got) == [x * y * f.R_inv % f.p
+                                     for x, y in zip(vals, vals[::-1])]
+
+
+@pytest.mark.gpu
+def test_decompress_and_subgroup_g1_on_card(cuda_device):
+    """The 1024 committed BLS12-381 G1 seeds compressed and decompressed
+    on the card equal the seeds; the GLV subgroup test accepts them and
+    agrees with the slow test on points outside the subgroup."""
+    ck = CurveKernels(P.BLS12_381, device=cuda_device)
+    pts = load_jax_seed_points(SEEDS_G1, ck.fp)
+    x, flags = ck.compress_g1(pts)
+    before = kernel_field.mont_mul.launches
+    A, valid = ck.decompress_g1(x, flags)
+    torch.cuda.synchronize()
+    assert kernel_field.mont_mul.launches > before
+    assert bool(valid.all())
+    assert ck.decode_g1(A) == ck.decode_g1(pts)
+    assert bool(ck.g1.is_in_subgroup(ck.g1.from_affine(A)).all())
+    og, f = ck.oracle_g1, ck.oracle_g1.f
+    r, outs = random.Random(4), []
+    while len(outs) < 3:
+        xo = r.randrange(f.p)
+        yo = f.sqrt((xo * xo % f.p * xo + og.b) % f.p)
+        if yo is not None:
+            outs.append((xo, yo))
+    B = ck.g1.from_affine(ck.encode_g1(outs))
+    assert ck.g1.is_in_subgroup(B).tolist() == [False] * 3
+    assert ck.g1.is_in_subgroup_slow(B).tolist() == [False] * 3
 
 
 def assert_same_points(ops, got, want):

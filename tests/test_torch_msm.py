@@ -24,6 +24,7 @@ from zikkurat_algebra_tpu_torch.errors import DimensionError, UnsupportedError
 from zikkurat_algebra_tpu_torch.ops import msm
 from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
 
+pytest_plugins = ["memory_guard"]
 torch.set_num_threads(1)
 
 

@@ -25,6 +25,7 @@ from zikkurat_algebra_tpu_torch.ops.field import Field
 from zikkurat_algebra_tpu_torch.ops.ntt import NTTDomain, get_domain
 from zikkurat_algebra_tpu_torch.oracle.ntt import intt, ntt, subgroup_gen
 
+pytest_plugins = ["memory_guard"]
 torch.set_num_threads(1)
 
 

@@ -25,6 +25,7 @@ from zikkurat_algebra_tpu_torch.ops import vector as V
 from zikkurat_algebra_tpu_torch.ops.field import Field
 from zikkurat_algebra_tpu_torch.ops.poly import PolyOps, get_poly_ops
 
+pytest_plugins = ["memory_guard"]
 torch.set_num_threads(1)
 
 

@@ -17,6 +17,7 @@ import torch
 from zikkurat_algebra_tpu.ops.pallas_sort import sort_key_val_pallas
 from zikkurat_algebra_tpu_torch.ops import kernel_sort
 
+pytest_plugins = ["memory_guard"]
 torch.set_num_threads(1)
 
 

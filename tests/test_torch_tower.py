@@ -16,6 +16,7 @@ from zikkurat_algebra_tpu_torch import params as P
 from zikkurat_algebra_tpu_torch.oracle.groups import fp2_field
 from zikkurat_algebra_tpu_torch.ops.tower import TowerKernels
 
+pytest_plugins = ["memory_guard"]
 torch.set_num_threads(1)
 
 N = 16

@@ -18,6 +18,16 @@
 // element in registers (no shared memory), reads the modulus once per
 // thread (the same address for the whole warp, a broadcast), and reads
 // limb planes so that a warp's 32 loads of one limb are contiguous.
+//
+// Widths: W = 12 (BLS12-381 and BLS12-377 Fp), 8 (their Fr, BN128, and
+// every 256-bit field), and 1, 2, 3, 4 for the primes at the limb
+// boundaries (M31; 45- to 64-bit primes; 2^64 + 13; M127).  The same
+// CIOS serves all: at W = 1 its inner reduction loop is empty and the
+// top word t[W] carries everything; for p above R/2 (goldilocks,
+// 2^255 + 95) the result below 2p may reach R, and reduce_once takes the
+// nonzero top word as the sign that t >= p.  The multiply-adds per byte
+// are (4 W + 1) / 12: 0.42 at W = 1, 1.4 at W = 4, against the card's
+// balance of about 5, so the small widths are bound by bytes.
 
 #include <cuda_runtime.h>
 
@@ -65,6 +75,10 @@ extern "C" int zk_mont_mul(const void* a, const void* b, void* out,
   auto O = static_cast<int32_t*>(out);
   auto P = static_cast<const int32_t*>(p);
   switch (W) {
+    case 1: return launch<1>(A, B, O, P, n0, n, s);
+    case 2: return launch<2>(A, B, O, P, n0, n, s);
+    case 3: return launch<3>(A, B, O, P, n0, n, s);
+    case 4: return launch<4>(A, B, O, P, n0, n, s);
     case 8: return launch<8>(A, B, O, P, n0, n, s);
     case 12: return launch<12>(A, B, O, P, n0, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

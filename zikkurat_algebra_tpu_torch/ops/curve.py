@@ -8,12 +8,24 @@ coordinate field is `Field` (G1, elements (W, *batch)) or `QuadExt`
 (G2, elements (W, 2, *batch)); the code only reads its `struct_ndim`.
 Independent products go through `mul_list` (one K1 launch) and
 independent sums through `add_list` / `sub_list`.  `scalar_mul_digits`
-is the windowed scalar multiplication the group FFT (ops/gfft.py) uses.
+is the windowed scalar multiplication the group FFT (ops/gfft.py) uses;
+`scalar_mul_static` the one for a scalar known on the host (subgroup
+checks, cofactor clearing).
+
+Subgroup membership: on the curve suffices for a cofactor of 1 (BN128
+G1); with a GLV endomorphism phi(x, y) = (beta x, y) it is on the curve
+and phi(P) = [lambda] P, a scalar of half the width of r (Scott, "A note
+on group membership tests for G1, G2 and GT", ePrint 2021/1130; BLS12
+G1); otherwise on the curve and [r] P = infinity (G2).  Compressed
+points (`CurveKernels.compress_g1` / `_g2`) are the canonical Montgomery
+limbs of x and int32 flags: bit 0 the parity of y in standard form (of
+its c0, or of c1 where c0 = 0, over Fp2), bit 1 infinity (x = 0 there).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import copy
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,6 +33,8 @@ import torch
 from ..errors import UnsupportedError
 from ..oracle.groups import g1_group, g2_group
 from ..params import CurveParams
+from . import limbs as lb
+from .field import resolve_device
 from .tower import TowerKernels
 
 Point = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]    # (X, Y, Z)
@@ -38,6 +52,9 @@ class ProjCurveOps:
         self.b3 = b3
         self.scalar_bits = scalar_bits
         self.name = name
+        self._order: Optional[int] = None
+        self._cofactor: Optional[int] = None
+        self._glv: Optional[Tuple[torch.Tensor, int]] = None
 
     def _bs(self, t: torch.Tensor) -> tuple:
         """The batch shape of a coordinate tensor."""
@@ -53,8 +70,9 @@ class ProjCurveOps:
 
     def plain(self) -> "ProjCurveOps":
         """The same group law with every product on the plain version."""
-        return ProjCurveOps(self.f.plain(), self.b3, self.scalar_bits,
-                            self.name)
+        g = copy.copy(self)
+        g.f = self.f.plain()
+        return g
 
     def infinity(self, batch_shape=()) -> Point:
         f = self.f
@@ -72,8 +90,21 @@ class ProjCurveOps:
         return f.eq(f.scale_small(lhs, 3),
                     f.add(f.scale_small(x3, 3), self.mul_b3(z3)))
 
+    def eq(self, P: Point, Q: Point) -> torch.Tensor:
+        """Equal as points (curve.py:71): X1 Z2 = X2 Z1 and Y1 Z2 = Y2 Z1
+        for finite points; infinity equals only infinity."""
+        f = self.f
+        xz1, xz2, yz1, yz2 = f.mul_list(
+            [(P[0], Q[2]), (Q[0], P[2]), (P[1], Q[2]), (Q[1], P[2])])
+        pi, qi = self.is_inf(P), self.is_inf(Q)
+        same = f.eq(xz1, xz2) & f.eq(yz1, yz2)
+        return (pi & qi) | (~pi & ~qi & same)
+
     def neg(self, P: Point) -> Point:
         return (P[0], self.f.neg(P[1]), P[2])
+
+    def sub(self, P: Point, Q: Point) -> Point:
+        return self.add(P, self.neg(Q))
 
     def add(self, P: Point, Q: Point) -> Point:
         """Complete projective addition, RCB15 algorithm 7 (a = 0)."""
@@ -184,6 +215,88 @@ class ProjCurveOps:
             acc = self.add(acc, entry(d))
         return acc
 
+    def scalar_mul_bits(self, bits: torch.Tensor, P: Point) -> Point:
+        """[k] P for scalars k given per element as little-endian bit
+        planes (B, *batch) on the device (curve.py:202): double-and-add
+        with the addition kept by a select, so no bit is read back."""
+        acc = self.infinity(self._bs(P[0]))
+        base = P
+        for i in range(bits.shape[0]):
+            acc = self.select(bits[i] == 1, self.add(acc, base), acc)
+            if i + 1 < bits.shape[0]:
+                base = self.dbl(base)
+        return acc
+
+    def scalar_mul_static(self, k: int, P: Point) -> Point:
+        """[k] P for one host int k shared by the batch (curve.py:283):
+        the 16-entry window table, then per 4-bit digit of k four
+        doublings and one addition of the digit's entry, indexed on the
+        host; a zero digit adds nothing.  k is not reduced mod r."""
+        if k == 0:
+            return self.infinity(self._bs(P[0]))
+        if k < 0:
+            return self.neg(self.scalar_mul_static(-k, P))
+        sn = self.f.struct_ndim
+        table = self._window_table(P)
+        digits = int_to_digits_msb(k, self.WINDOW)
+        acc = tuple(c.select(sn, digits[0]) for c in table)
+        for d in digits[1:]:
+            for _ in range(self.WINDOW):
+                acc = self.dbl(acc)
+            if d:
+                acc = self.add(acc, tuple(c.select(sn, d) for c in table))
+        return acc
+
+    def scalar_mul_fr_std(self, k_limbs: torch.Tensor, P: Point) -> Point:
+        """[k] P for canonical standard-rep scalar limbs (Wr, *batch)
+        (curve.py:351), windowed."""
+        return self.scalar_mul_digits(limbs_to_digits_msb(k_limbs), P)
+
+    # -- subgroup ------------------------------------------------------------
+    def set_subgroup_params(self, order: int, cofactor: int):
+        self._order = order
+        self._cofactor = cofactor
+        self._glv = None
+
+    def set_glv(self, beta_mont: torch.Tensor, lam: int):
+        """Use phi(X : Y : Z) = (beta X : Y : Z) with eigenvalue lam on the
+        r-subgroup; beta is a (W,) Montgomery device constant."""
+        self._glv = (beta_mont, lam)
+
+    def endo(self, P: Point) -> Point:
+        """phi(P): one product."""
+        beta, _ = self._glv
+        return (self.f.mul(P[0], lb.bcast(beta, P[0].ndim)), P[1], P[2])
+
+    def _subgroup(self) -> int:
+        if self._order is None:
+            raise ValueError(f"{self.name}: no subgroup parameters set")
+        return self._order
+
+    def is_in_subgroup(self, P: Point) -> torch.Tensor:
+        """Subgroup membership (curve.py:319): on the curve, and for a
+        cofactor above 1 phi(P) = [lambda] P where a GLV endomorphism is
+        set, else [r] P = infinity."""
+        r = self._subgroup()
+        on = self.is_on_curve(P)
+        if self._cofactor == 1:
+            return on
+        if self._glv is not None:
+            lam_p = self.scalar_mul_static(self._glv[1], P)
+            return on & self.eq(self.endo(P), lam_p)
+        return on & self.is_inf(self.scalar_mul_static(r, P))
+
+    def is_in_subgroup_slow(self, P: Point) -> torch.Tensor:
+        """On the curve and [r] P = infinity: the definition, the referee
+        of the fast paths."""
+        r = self._subgroup()
+        return self.is_on_curve(P) & self.is_inf(self.scalar_mul_static(r, P))
+
+    def clear_cofactor(self, P: Point) -> Point:
+        """[h] P for the cofactor h: a curve point into the subgroup."""
+        self._subgroup()
+        return self.scalar_mul_static(self._cofactor, P)
+
     def select(self, pred, P: Point, Q: Point) -> Point:
         s = self.f.select
         return (s(pred, P[0], Q[0]), s(pred, P[1], Q[1]), s(pred, P[2], Q[2]))
@@ -206,9 +319,46 @@ class ProjCurveOps:
         return (s(inf, zero, x), s(inf, one, y), s(inf, zero, one))
 
 
+def limbs_to_bits(a: torch.Tensor) -> torch.Tensor:
+    """(W, *batch) canonical limbs -> (32 W, *batch) int32 bit planes,
+    least significant first (curve.py:364, which gives 15 L bits)."""
+    sh = torch.arange(lb.LIMB_BITS, device=a.device).view(
+        (1, lb.LIMB_BITS) + (1,) * (a.ndim - 1))
+    bits = (lb.to64(a).unsqueeze(1) >> sh) & 1
+    return bits.reshape((a.shape[0] * lb.LIMB_BITS,) + a.shape[1:]).to(
+        torch.int32)
+
+
+def limbs_to_digits_msb(a: torch.Tensor, w: int = 4) -> torch.Tensor:
+    """(W, *batch) canonical limbs -> (ceil(32 W / w), *batch) int32 w-bit
+    digit planes, most significant first (curve.py:375; the count of
+    leading zero digits differs from the JAX package's, the value not)."""
+    bits = limbs_to_bits(a)
+    pad = (-bits.shape[0]) % w
+    if pad:
+        bits = torch.cat([bits, bits.new_zeros((pad,) + bits.shape[1:])], 0)
+    bits = bits.reshape((bits.shape[0] // w, w) + bits.shape[1:])
+    weights = (1 << torch.arange(w, device=a.device, dtype=torch.int32)
+               ).view((1, w) + (1,) * (bits.ndim - 2))
+    return (bits * weights).sum(1, dtype=torch.int32).flip(0)
+
+
+def int_to_digits_msb(k: int, w: int = 4):
+    """A nonnegative int -> its w-bit digits, most significant first (at
+    least one digit)."""
+    if k < 0:
+        raise ValueError("negative scalar")
+    digits = []
+    while k:
+        digits.append(k & ((1 << w) - 1))
+        k >>= w
+    return digits[::-1] or [0]
+
+
 class CurveKernels:
     """G1 and G2 of one curve family on one device: the fields, the group
-    laws, host encoding and the MSMs (curve.py::CurveKernels)."""
+    laws with their subgroup tests, host encoding, point compression and
+    the MSMs (curve.py::CurveKernels)."""
 
     def __init__(self, curve: CurveParams, device="cuda"):
         self.curve = curve
@@ -216,10 +366,15 @@ class CurveKernels:
         self.fp = self.tower.fp
         self.fr = self.tower.fr
         self.device = self.fp.device
-        r_bits = curve.fr.p.bit_length()
+        r = curve.fr.p
+        r_bits = r.bit_length()
         self.oracle_g1 = g1_group(curve)
         self.g1 = ProjCurveOps(self.fp, 3 * curve.b, r_bits,
                                name=f"{curve.name}/G1")
+        self.g1.set_subgroup_params(r, curve.cofactor)
+        if curve.glv_beta_lambda is not None and curve.cofactor != 1:
+            self.g1.set_glv(*self._glv_pair(curve))
+        self._b1 = self.fp.encode(curve.b)
         if curve.b2 is None:
             # a fields + tower + G1 family (BLS12-377), as in the JAX package
             self.oracle_g2 = self.g2 = None
@@ -229,22 +384,104 @@ class CurveKernels:
             b3 = (3 * curve.b2[0] % p, 3 * curve.b2[1] % p)
             self.g2 = ProjCurveOps(self.tower.fp2, b3, r_bits,
                                    name=f"{curve.name}/G2")
+            self.g2.set_subgroup_params(r, curve.g2_cofactor)
+            self._b2 = self.tower.encode_fp2_const(curve.b2)
         self._msm = {}
+
+    def _glv_pair(self, curve: CurveParams):
+        """(beta as a device constant, its eigenvalue): lambda or lambda^2
+        mod r, whichever maps the oracle generator G to (beta x, y)
+        (curve.py:420-444); neither raises."""
+        beta, lam = curve.glv_beta_lambda
+        gen = self.oracle_g1.gen
+        phi_g = (beta * gen[0] % curve.fp.p, gen[1])
+        for cand in (lam, lam * lam % curve.fr.p):
+            if self.oracle_g1.scalar_mul(cand, gen) == phi_g:
+                return self.fp.encode(beta), cand
+        raise ValueError(f"{curve.name}: GLV beta does not match lambda or "
+                         "lambda^2 on the generator")
+
+    def _group(self, grp: str):
+        """(group law, oracle group, encoder) of "g1" or "g2"."""
+        if grp not in ("g1", "g2"):
+            raise ValueError(f"no group {grp!r}: use 'g1' or 'g2'")
+        if grp == "g1":
+            return self.g1, self.oracle_g1, self.encode_g1
+        if self.g2 is None:
+            raise UnsupportedError(
+                f"{self.curve.name} has no G2 support (fields + tower + G1 "
+                "only)")
+        return self.g2, self.oracle_g2, self.encode_g2
+
+    def rnd_point(self, gen: torch.Generator, batch_shape=(),
+                  grp: str = "g1") -> Point:
+        """Random subgroup points [k] G for k drawn by `Field.rnd` of Fr
+        from `gen` (curve.py:460), as projective points of batch_shape."""
+        ops, og, enc = self._group(grp)
+        n = int(np.prod(batch_shape)) if batch_shape else 1
+        G = tuple(c.expand(c.shape[:-1] + (n,)).contiguous()
+                  for c in ops.from_affine(enc([og.gen])))
+        k = self.fr.from_mont(self.fr.rnd(gen, (n,)))
+        P = ops.scalar_mul_fr_std(k, G)
+        return tuple(c.reshape(c.shape[:-1] + tuple(batch_shape)) for c in P)
 
     def msm(self, grp: str = "g1"):
         """The Pippenger MSM of "g1" or "g2" (built once, then cached)."""
-        if grp not in ("g1", "g2"):
-            raise ValueError(f"no group {grp!r}: use 'g1' or 'g2'")
+        ops = self._group(grp)[0]
         if grp not in self._msm:
             from .msm import CurveMSM
 
-            ops = self.g1 if grp == "g1" else self.g2
-            if ops is None:
-                raise UnsupportedError(
-                    f"{self.curve.name} has no G2 support (fields + tower "
-                    "+ G1 only)")
             self._msm[grp] = CurveMSM(ops, self.fr)
         return self._msm[grp]
+
+    # -- compressed points (curve.py:496-555) -----------------------------------
+    @staticmethod
+    def _parity(f, y) -> torch.Tensor:
+        """Parity of the standard-rep value of y, int32."""
+        return (f.from_mont(y)[0] & 1).to(torch.int32)
+
+    def _parity_fp2(self, y) -> torch.Tensor:
+        """The Fp2 sign: parity of c0, or of c1 where c0 = 0, so that
+        negation flips it for every y != 0 (one product for both)."""
+        par = self._parity(self.fp, y)
+        return torch.where(self.fp.is_zero(y[:, 0]), par[1], par[0])
+
+    @staticmethod
+    def _flags(par, inf) -> torch.Tensor:
+        return par | (inf.to(torch.int32) << 1)
+
+    def compress_g1(self, A: AffBatch):
+        """Affine G1 batch -> (x limbs, 0 at infinity; int32 flags)."""
+        x, y, inf = A
+        return (self.fp.select(inf, torch.zeros_like(x), x),
+                self._flags(self._parity(self.fp, y), inf))
+
+    def decompress_g1(self, x: torch.Tensor, flags: torch.Tensor):
+        """Inverse of `compress_g1`: y = +-sqrt(x^3 + b), the sign chosen
+        by the parity flag.  Returns (affine batch, valid), valid False
+        where x^3 + b is no square (no point has that x)."""
+        f = self.fp
+        par, inf = flags & 1, (flags & 2) == 2
+        rhs = f.add(f.mul(f.sqr(x), x), lb.bcast(self._b1, x.ndim))
+        root, ok = f.sqrt(rhs)
+        y = f.select(self._parity(f, root) == par, root, f.neg(root))
+        return (x, y, inf), ok | inf
+
+    def compress_g2(self, A: AffBatch):
+        """Affine G2 batch -> (x, (W, 2, *batch), 0 at infinity; flags)."""
+        x, y, inf = A
+        return (self.tower.fp2.select(inf, torch.zeros_like(x), x),
+                self._flags(self._parity_fp2(y), inf))
+
+    def decompress_g2(self, x: torch.Tensor, flags: torch.Tensor):
+        """Inverse of `compress_g2` through `TowerKernels.fp2_sqrt`."""
+        f2 = self.tower.fp2
+        par, inf = flags & 1, (flags & 2) == 2
+        b = self._b2.view(self._b2.shape + (1,) * (x.ndim - 2))
+        root, ok = self.tower.fp2_sqrt(f2.add(f2.mul(f2.sqr(x), x),
+                                              b.expand(x.shape)))
+        y = f2.select(self._parity_fp2(root) == par, root, f2.neg(root))
+        return (x, y, inf), ok | inf
 
     @staticmethod
     def _encode(enc, zero, pts, device) -> AffBatch:
@@ -275,3 +512,15 @@ class CurveKernels:
 
     def decode_g2(self, A: AffBatch):
         return self._decode(self.tower.decode_fp2, A)
+
+
+_CURVE_CACHE: Dict[Tuple[CurveParams, torch.device], CurveKernels] = {}
+
+
+def get_curves(curve: CurveParams, device="cuda") -> CurveKernels:
+    """The `CurveKernels` of `curve` on `device`, built once
+    (curve.py:596)."""
+    key = (curve, resolve_device(device))
+    if key not in _CURVE_CACHE:
+        _CURVE_CACHE[key] = CurveKernels(curve, key[1])
+    return _CURVE_CACHE[key]

@@ -1,18 +1,26 @@
 """Batched Montgomery prime field on radix-2^32 limb planes.
 
-The torch counterpart of zikkurat_algebra_tpu/ops/field.py::Field,
-restricted to what the MSMs use.  Elements are (W, *batch) int32
-planes (ops/limbs.py), canonical in [0, p), in Montgomery form with
-R = 2^(32 W).  Every product goes through `kernel_field.mont_mul`: kernel
-K1 for CUDA tensors, its plain version for CPU tensors.  `mul_list` stacks
-independent products into one launch, as the JAX package does.
+The torch counterpart of zikkurat_algebra_tpu/ops/field.py::Field.
+Elements are (W, *batch) int32 planes (ops/limbs.py), canonical in
+[0, p), in Montgomery form with R = 2^(32 W); W runs from 1 (M31) to 12
+(BLS12-381 Fp).  Every product goes through `kernel_field.mont_mul`:
+kernel K1 for CUDA tensors, its plain version for CPU tensors.
+`mul_list` stacks independent products into one launch, as the JAX
+package does.
+
+Exponents (`pow_bits`, `pow_static`, `inv`, `sqrt`) are public host
+integers, so their square-and-multiply chains branch on the host and
+never read the device; data-dependent choices (Tonelli-Shanks' levels)
+are device selects.  The constants they use are device tensors built
+once per field (`const` keeps every constant it has built).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import List, Sequence, Tuple, Union
+from typing import Dict, List, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..params import FieldParams
@@ -62,7 +70,11 @@ class Field:
         self.one_limbs = t(self.R % self.p, self.W)
         self.r2_limbs = t(self.R * self.R % self.p, self.W)
         self._mont_mul = kernel_field.mont_mul
-        self.p_minus_2 = self.p - 2
+        self._consts: Dict[int, torch.Tensor] = {}
+        # the reference C's Montgomery R = 2^(64 ceil(bits / 64)), the R of
+        # export_ref_mont / import_ref_mont; it differs from R for odd W
+        self.ref_words = -(-self.p.bit_length() // 64)
+        self.R_ref = 1 << (64 * self.ref_words)
 
     def plain(self) -> "Field":
         """A view of this field whose products always run the plain torch
@@ -73,9 +85,12 @@ class Field:
 
     # -- constants ---------------------------------------------------------
     def const(self, value: int, batch_shape=()) -> torch.Tensor:
-        """Montgomery form of an int, broadcast to (W, *batch_shape)."""
-        v = lb.ints_to_limbs((value % self.p) * self.R % self.p, self.W)
-        c = torch.from_numpy(v.copy()).to(self.device)
+        """Montgomery form of an int, broadcast to (W, *batch_shape).  The
+        (W,) device tensor of each value is built once and kept."""
+        value %= self.p
+        c = self._consts.get(value)
+        if c is None:
+            c = self._consts[value] = self.encode(value)
         return lb.bcast(c, len(batch_shape) + 1).expand(
             (self.W,) + tuple(batch_shape))
 
@@ -138,6 +153,19 @@ class Field:
         """k * a mod p for a small int k (one product by k R mod p)."""
         return self.mul(a, self.const(k, a.shape[1:]))
 
+    def muli(self, a, k: int):
+        """k * a for a static int k (field.py:289): no product for k = 0
+        or 1."""
+        if k == 0:
+            return torch.zeros_like(a)
+        if k == 1:
+            return a
+        return self.scale_small(a, k)
+
+    def div2(self, a):
+        """a / 2: one product by the constant 1/2 (field.py:298)."""
+        return self.scale_small(a, (self.p + 1) // 2)
+
     # -- predicates and selection -------------------------------------------
     def norm(self, a):
         """Canonical [0, p) limbs of any value < 2^(32 W)."""
@@ -152,16 +180,43 @@ class Field:
     def select(self, pred, a, b):
         return torch.where(pred.unsqueeze(0), a, b)
 
-    # -- inversion -----------------------------------------------------------
-    def inv(self, a):
-        """Fermat inverse a^(p-2), MSB-first square-and-multiply; inv(0) = 0."""
-        e = self.p_minus_2
-        acc = a.contiguous()
-        for i in range(e.bit_length() - 2, -1, -1):
+    def is_valid(self, a) -> torch.Tensor:
+        """Whether limbs a encode a value below p (field.py:384): a - p
+        borrows."""
+        _, borrow = lb.sub_borrow(lb.to64(a) - lb.bcast(self.p64, a.ndim))
+        return borrow.bool()
+
+    # -- exponentiation ------------------------------------------------------
+    def pow_bits(self, a, bits):
+        """a^e for e given by its little-endian bits on the host (a
+        sequence or numpy array of 0/1; field.py:325).  MSB-first
+        square-and-multiply; the bits choose which products are launched,
+        so nothing is read back from the device."""
+        bits = np.asarray(bits).reshape(-1)
+        nz = np.flatnonzero(bits)
+        if nz.size == 0:
+            return self.one(a.shape[1:]).contiguous()
+        a = a.contiguous()
+        acc = a
+        for i in range(int(nz[-1]) - 1, -1, -1):
             acc = self.sqr(acc)
-            if (e >> i) & 1:
+            if bits[i]:
                 acc = self.mul(acc, a)
         return acc
+
+    def pow_static(self, a, e: int):
+        """a^e for a host int e; a negative e inverts first."""
+        if e < 0:
+            return self.pow_static(self.inv(a), -e)
+        return self.pow_bits(a, int_to_bits(e))
+
+    def div(self, a, b):
+        return self.mul(a, self.inv(b))
+
+    # -- inversion -----------------------------------------------------------
+    def inv(self, a):
+        """Fermat inverse a^(p-2); inv(0) = 0."""
+        return self.pow_static(a, self.p - 2)
 
     def batch_inv(self, a):
         """Montgomery batch inversion: prefix products, ONE inversion, and
@@ -184,6 +239,60 @@ class Field:
         out = self.select(zero, torch.zeros_like(out), out)
         return out.reshape(a.shape)
 
+    # -- square roots ----------------------------------------------------------
+    def sqrt(self, a):
+        """(root, is_square) for Montgomery elements a (field.py:392-439):
+        a^((p+1)/4) for p = 3 mod 4, else Tonelli-Shanks with a constant
+        number of steps, s - 1 levels for p - 1 = q 2^s with q odd.
+        is_square is root^2 == a, so a non-residue reports False."""
+        if self.p % 4 == 3:
+            r = self.pow_static(a, (self.p + 1) // 4)
+            return r, self.eq(self.sqr(r), a)
+        q, s = self._two_adic
+        # w = a^((q-1)/2): x = a w = a^((q+1)/2), t = x w = a^q
+        w = self.pow_static(a, (q - 1) // 2)
+        x = self.mul(a, w)
+        t = self.mul(x, w)
+        bs = a.shape[1:]
+        c = self.const(pow(self.params.multiplicative_gen, q, self.p), bs)
+        minus1 = self.const(-1, bs)
+        # level i = s .. 2: c has order 2^i; where t^(2^(i-2)) = -1, t has
+        # order 2^(i-1) and x, t take one factor c more
+        for i in range(s, 1, -1):
+            t2 = t
+            for _ in range(i - 2):
+                t2 = self.sqr(t2)
+            flag = self.eq(t2, minus1)
+            xc, c = self.mul_list([(x, c), (c, c)])
+            x = self.select(flag, xc, x)
+            t = self.select(flag, self.mul(t, c), t)
+        return x, self.eq(self.sqr(x), a)
+
+    @property
+    def _two_adic(self) -> Tuple[int, int]:
+        """(q, s) with p - 1 = q 2^s, q odd."""
+        s = ((self.p - 1) & -(self.p - 1)).bit_length() - 1
+        return (self.p - 1) >> s, s
+
+    # -- lazy wide sums ----------------------------------------------------------
+    def reduce_wide(self, cols: torch.Tensor) -> torch.Tensor:
+        """Canonical limbs of the residue of sum_i cols[i] 2^(32 i) for
+        int64 columns (W, *batch) in [0, 2^62) (field.py:441, over the
+        port's column format: the int64 column sums of ops/vector.py).
+        Returns (W, *batch) int32."""
+        W = self.W
+        zero = torch.zeros_like(cols[:1])
+        c = torch.cat([cols, zero], 0)
+        c = (c & lb.M32) + torch.cat([zero, c[:-1] >> 32], 0)   # < 2^33
+        limbs, _ = lb.add_carry(c)       # W + 1 limbs; the top one < 2^31
+        low = lb.to32(limbs[:W])
+        top = torch.cat([limbs[W:], torch.zeros_like(limbs[1:W])], 0)
+        bs = cols.shape[1:]
+        r2 = lb.bcast(self.r2_limbs, cols.ndim).expand(low.shape)
+        # low R R^-1 = low mod p;  top R^2 R^-1 = top 2^(32 W) mod p
+        lo, hi = self.mul_list([(low, self.one(bs)), (lb.to32(top), r2)])
+        return self.add(lo, hi)
+
     # -- representation conversions ------------------------------------------
     def to_mont(self, a_std):
         return self.mul(a_std, self.r2_limbs.view(
@@ -194,6 +303,22 @@ class Field:
         one_std = torch.zeros_like(a)
         one_std[0] = 1
         return self.mul(a, one_std)
+
+    def norm_std(self, a):
+        """Canonical [0, p) limbs of a standard-rep value < 2^(32 W)
+        (field.py:466).  A product by R mod p reduces either form."""
+        return self.norm(a)
+
+    def std_mul(self, a_std, b_std):
+        """a b mod p on standard-rep limbs: (a b R^-1) R^2 R^-1."""
+        t = self.mul(a_std, b_std)
+        return self.mul(t, lb.bcast(self.r2_limbs, t.ndim).expand(t.shape))
+
+    def std_inv(self, a_std):
+        return self.from_mont(self.inv(self.to_mont(a_std)))
+
+    def std_pow(self, a_std, e: int):
+        return self.from_mont(self.pow_static(self.to_mont(a_std), e))
 
     # -- host encode / decode -------------------------------------------------
     def encode(self, values: Union[int, Sequence[int]], mont: bool = True):
@@ -219,8 +344,61 @@ class Field:
             return [v * self.R_inv % self.p for v in out]
         return [v % self.p for v in out]
 
+    # -- the reference C's word format (host) -----------------------------------
+    def export_ref_mont(self, limbs) -> List[List[int]]:
+        """Elements -> the reference C's Montgomery words: value * R_ref
+        mod p as little-endian 64-bit words, R_ref = 2^(64 ceil(bits/64))
+        (field.py:517), one word list per element."""
+        vals = self.decode(limbs)
+        if isinstance(vals, int):
+            vals = [vals]
+        mask = (1 << 64) - 1
+        return [[(v * self.R_ref % self.p >> (64 * i)) & mask
+                 for i in range(self.ref_words)] for v in vals]
+
+    def import_ref_mont(self, words_list: Sequence[Sequence[int]]):
+        """The inverse of `export_ref_mont`: (W, N) Montgomery limbs."""
+        r_inv = pow(self.R_ref, -1, self.p)
+        vals = [sum(int(w) << (64 * i) for i, w in enumerate(words))
+                * r_inv % self.p for words in words_list]
+        return self.encode(vals)
+
+    # -- randomness ------------------------------------------------------------
+    def rnd(self, gen: torch.Generator, batch_shape=()) -> torch.Tensor:
+        """Nearly uniform Montgomery elements (bias below 2^(-32 W)): 2W
+        random 32-bit limbs from `gen`, drawn on gen's device, reduced as
+        lo + hi 2^(32 W) mod p by one stacked product."""
+        shape = (2 * self.W,) + tuple(batch_shape)
+        wide = torch.randint(0, 1 << 32, shape, generator=gen,
+                             dtype=torch.int64, device=gen.device)
+        wide = lb.to32(wide).to(self.device)
+        bs = tuple(batch_shape)
+        r2 = lb.bcast(self.r2_limbs, len(shape)).expand((self.W,) + bs)
+        lo, hi = self.mul_list([(wide[:self.W], self.one(bs)),
+                                (wide[self.W:], r2)])
+        return self.add(lo, hi)
+
     def __repr__(self):
         return f"Field({self.params.name}, W={self.W}, {self.device})"
+
+
+_FIELD_CACHE: Dict[Tuple[FieldParams, torch.device], Field] = {}
+
+
+def get_field(params: FieldParams, device="cuda") -> Field:
+    """The `Field` of `params` on `device`, built once (field.py:569)."""
+    key = (params, resolve_device(device))
+    if key not in _FIELD_CACHE:
+        _FIELD_CACHE[key] = Field(params, key[1])
+    return _FIELD_CACHE[key]
+
+
+def int_to_bits(e: int) -> np.ndarray:
+    """Little-endian bits of a nonnegative int (at least one bit)."""
+    if e < 0:
+        raise ValueError("negative exponent")
+    return np.array([(e >> i) & 1 for i in range(max(1, e.bit_length()))],
+                    dtype=np.uint8)
 
 
 def _digits16(value: int, W: int, device) -> torch.Tensor:

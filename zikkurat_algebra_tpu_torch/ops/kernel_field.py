@@ -1,11 +1,13 @@
 """Kernel K1: the elementwise Montgomery product, and its plain version.
 
 `mont_mul(a, b, f)` computes a * b * R^-1 mod p on (W, *batch) limb
-planes with canonical inputs and gives canonical output limbs.  On a CUDA
-tensor it launches the hand-written kernel of `csrc/mont_mul.cu` (CIOS
-over 32-bit limbs, one element per thread); on a CPU tensor it runs
-`mont_mul_plain`.  There is no other path: a tensor on any other device,
-a failed build or a refused launch raises.
+planes and gives canonical output limbs; b must be canonical, a any value
+below R (so a product by R mod p reduces a).  On a CUDA tensor it
+launches the hand-written kernel of `csrc/mont_mul.cu` (CIOS over 32-bit
+limbs, one element per thread, W in `KERNEL_WIDTHS`); on a CPU tensor it
+runs `mont_mul_plain`.  There is no other path: a tensor on any other
+device, a width the kernel does not take, a failed build or a refused
+launch raises.
 
 It replaces the Pallas kernel `_build_mont_mul` / `mont_mul_pallas` of
 zikkurat_algebra_tpu/ops/pallas_field.py, which works on signed
@@ -88,6 +90,7 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, f) -> torch.Tensor:
 
 # -- kernel --------------------------------------------------------------------
 
+KERNEL_WIDTHS = (1, 2, 3, 4, 8, 12)     # the instantiations of zk_mont_mul
 _ARGTYPES = [ctypes.c_void_p] * 4 + [
     ctypes.c_uint32, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
 ]
@@ -111,6 +114,9 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, f) -> torch.Tensor:
         raise ValueError(f"mont_mul: no kernel for device {a.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("mont_mul: limb planes must be contiguous")
+    if f.W not in KERNEL_WIDTHS:
+        raise ValueError(f"mont_mul: no kernel for W={f.W} (widths "
+                         f"{KERNEL_WIDTHS})")
     out = torch.empty_like(a)
     n = a.numel() // f.W
     if n == 0:

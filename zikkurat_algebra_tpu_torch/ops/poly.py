@@ -8,7 +8,7 @@ its degree is a value computed from the data, not N.
 Products go through kernel K1 (`Field.mul` / `mul_list`), transforms
 through the NTT (`ntt.get_domain`, kernel K5).  `mul_naive` forms every
 product a_i b_j in one launch and sums the anti-diagonals as int64 column
-sums (`vector.reduce_cols`); `div_by_vanishing` is a log-depth suffix
+sums (`Field.reduce_wide`); `div_by_vanishing` is a log-depth suffix
 scan of the affine maps t -> B_j + eta t.
 """
 
@@ -23,7 +23,7 @@ from ..errors import DimensionError
 from . import limbs as lb
 from .field import Field, _scan_mul
 from .ntt import get_domain
-from .vector import dot_prod, powers, reduce_cols, scale, sum_mod
+from .vector import dot_prod, powers, scale, sum_mod
 
 NAIVE_MAX = 64              # mul: schoolbook when na + nb <= NAIVE_MAX
 
@@ -119,7 +119,7 @@ class PolyOps:
                            dtype=torch.int64, device=a.device)
         cols.index_add_(-1, _antidiag(na, nb, str(a.device)),
                         lb.to64(prods).flatten(-2))
-        return reduce_cols(f, cols)
+        return f.reduce_wide(cols)
 
     def mul_ntt(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Product through the NTT: both operands in one forward transform,

@@ -17,6 +17,7 @@ from typing import List, Sequence, Tuple, Union
 import torch
 
 from ..params import CurveParams
+from . import limbs as lb
 from .field import Field
 
 Fp2Value = Union[int, Tuple[int, int]]
@@ -151,9 +152,9 @@ class QuadExt:
 
 
 class TowerKernels:
-    """What G2 needs of one curve's tower: Fp, Fr, Fp2 and the host
-    encoding of Fp2 values (tower.py:259-277, 362-375).  Fp6, Fp12 and
-    the Frobenius maps come with the pairing."""
+    """What G2 needs of one curve's tower: Fp, Fr, Fp2, the Fp2 square
+    root and the host encoding of Fp2 values (tower.py:259-335, 362-375).
+    Fp6, Fp12 and the Frobenius maps come with the pairing."""
 
     def __init__(self, curve: CurveParams, device="cuda"):
         self.curve = curve
@@ -163,6 +164,34 @@ class TowerKernels:
         self.qnr = curve.tower.qnr
         self.fp2 = QuadExt(self.fp, self.qnr)
         self.mul_u2 = self.fp2.mul_u2
+        self._qnr_inv = self.fp.encode(pow(self.qnr, -1, curve.fp.p))
+
+    def fp2_sqrt(self, a):
+        """(root, is_square) for Fp2 elements (W, 2, *batch), branch-free
+        (tower.py:305-335).  With s = sqrt(N(a)), the root is
+        t + a1 / (2 t) u for t = sqrt((a0 + s) / 2), or sqrt((a0 - s) / 2)
+        where that is no square; for a1 = 0 it is sqrt(a0) or
+        sqrt(a0 / qnr) u.  The four base roots after the first are
+        independent and go through ONE batched `Field.sqrt`.  is_square is
+        root^2 == a, so a non-square reports False."""
+        f = self.fp
+        a0, a1 = a[:, 0], a[:, 1]
+        s, _ = f.sqrt(self.fp2._norm(a))
+        halves = f.div2(torch.stack([f.add(a0, s), f.sub(a0, s)], 1))
+        qi = lb.bcast(self._qnr_inv, a0.ndim).expand(a0.shape)
+        roots, oks = f.sqrt(torch.cat(
+            [halves, torch.stack([a0, f.mul(a0, qi)], 1)], 1))
+        t1, t2, r0, rn = roots.unbind(1)
+        ok1, _, okr0, _ = oks.unbind(0)
+        t = f.select(ok1, t1, t2)
+        # t = 0 (a = 0 or a non-square): inv(0) = 0, and the check rejects
+        x1 = f.mul(a1, f.inv(f.add(t, t)))
+        z1 = f.is_zero(a1)
+        zero = torch.zeros_like(a0)
+        c0 = f.select(z1, f.select(okr0, r0, zero), t)
+        c1 = f.select(z1, f.select(okr0, zero, rn), x1)
+        root = torch.stack([c0, c1], 1)
+        return root, self.fp2.eq(self.fp2.sqr(root), a)
 
     def encode_fp2_const(self, c: Tuple[int, int]) -> torch.Tensor:
         """One Fp2 value -> (W, 2) Montgomery limbs."""

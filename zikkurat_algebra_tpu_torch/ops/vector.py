@@ -9,7 +9,7 @@ Sums do not carry over from the JAX package, whose lazy radix-2^15 column
 sums rely on spare bits in each limb.  Canonical 32-bit limbs have none,
 so a sum here is an int64 column sum of the limbs (exact below 2^30
 terms), one carry pass, and a reduction of the (W + 1)-limb total with
-one stacked Montgomery product launch (`reduce_cols`).
+one stacked Montgomery product launch (`Field.reduce_wide`).
 """
 
 from __future__ import annotations
@@ -20,23 +20,6 @@ from . import limbs as lb
 from .field import Field, _scan_mul
 
 _CHUNK = 1 << 30            # terms per int64 column sum: 2^30 * 2^32 < 2^63
-
-
-def reduce_cols(f: Field, cols: torch.Tensor) -> torch.Tensor:
-    """Canonical limbs of the residue of sum_i cols[i] 2^(32 i) for int64
-    columns (W, *batch) in [0, 2^62).  Returns (W, *batch) int32."""
-    W = f.W
-    zero = torch.zeros_like(cols[:1])
-    c = torch.cat([cols, zero], 0)
-    c = (c & lb.M32) + torch.cat([zero, c[:-1] >> 32], 0)   # < 2^33
-    limbs, _ = lb.add_carry(c)          # W + 1 limbs; the top one < 2^31
-    low = lb.to32(limbs[:W])
-    top = torch.cat([limbs[W:], torch.zeros_like(limbs[1:W])], 0)
-    bs = cols.shape[1:]
-    r2 = lb.bcast(f.r2_limbs, cols.ndim).expand(low.shape)
-    # low * R * R^-1 = low mod p;  top * R^2 * R^-1 = top * 2^(32 W) mod p
-    lo, hi = f.mul_list([(low, f.one(bs)), (lb.to32(top), r2)])
-    return f.add(lo, hi)
 
 
 def sum_mod(f: Field, a: torch.Tensor, axis: int = -1) -> torch.Tensor:
@@ -50,7 +33,7 @@ def sum_mod(f: Field, a: torch.Tensor, axis: int = -1) -> torch.Tensor:
         return f.zero(x.shape[1:-1])
     out = None
     for part in x.split(_CHUNK, -1):
-        s = reduce_cols(f, lb.to64(part).sum(-1))
+        s = f.reduce_wide(lb.to64(part).sum(-1))
         out = s if out is None else f.add(out, s)
     return out
 

@@ -34,6 +34,11 @@ class CurveGroup:
         rhs = f.add(f.add(f.mul(f.mul(x, x), x), f.mul(self.a, x)), self.b)
         return f.eq(f.mul(y, y), rhs)
 
+    def is_in_subgroup(self, pt: AffinePoint) -> bool:
+        """On the curve and r pt = infinity (r not reduced mod r)."""
+        return (self.is_on_curve(pt)
+                and self.scalar_mul_unreduced(self.r, pt) is None)
+
     def neg(self, pt: AffinePoint) -> AffinePoint:
         if pt is None:
             return None
@@ -71,8 +76,18 @@ class CurveGroup:
         y3 = f.sub(f.mul(lam, f.sub(x1, x3)), y1)
         return (x3, y3)
 
+    def sub(self, p: AffinePoint, q: AffinePoint) -> AffinePoint:
+        return self.add(p, self.neg(q))
+
     def scalar_mul(self, k: int, pt: AffinePoint) -> AffinePoint:
-        k = k % self.r if self.r else k
+        """[k mod r] pt: right for points of the r-subgroup only."""
+        return self.scalar_mul_unreduced(k % self.r if self.r else k, pt)
+
+    def scalar_mul_unreduced(self, k: int, pt: AffinePoint) -> AffinePoint:
+        """[k] pt for any curve point, k not reduced mod r (cofactor
+        multiples, subgroup checks)."""
+        if k < 0:
+            k, pt = -k, self.neg(pt)
         acc = None
         while k:
             if k & 1:
@@ -90,3 +105,7 @@ class CurveGroup:
         for k, pt in zip(coeffs, points):
             acc = self.add(acc, self.scalar_mul(k, pt))
         return acc
+
+    def rnd(self, rng) -> AffinePoint:
+        """[k] gen for k uniform in [1, r) from `rng` (a random.Random)."""
+        return self.scalar_mul(rng.randrange(1, self.r), self.gen)

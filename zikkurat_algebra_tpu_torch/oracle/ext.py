@@ -43,6 +43,11 @@ class Fp2Field:
         return ((a[0] * b[0] + self.qnr * a[1] * b[1]) % p,
                 (a[0] * b[1] + a[1] * b[0]) % p)
 
+    def sqr(self, a):
+        p = self.p
+        return ((a[0] * a[0] + self.qnr * a[1] * a[1]) % p,
+                (2 * a[0] * a[1]) % p)
+
     def inv(self, a):
         """(a0 - a1 u) / N(a); inv(0) == 0 as in the base field."""
         p = self.p
@@ -57,3 +62,27 @@ class Fp2Field:
 
     def is_zero(self, a):
         return a == (0, 0)
+
+    def sqrt(self, a):
+        """A square root of a by the norm: with n = sqrt(N(a)), the root is
+        x0 + x1 u with x0^2 = (a0 +- n) / 2 and x1 = a1 / (2 x0), or
+        x1 u with qnr x1^2 = a0 when a1 = 0; None for a non-square."""
+        if self.is_zero(a):
+            return self.zero
+        f = self.fp
+        n = f.sqrt(self._norm(a))
+        if n is None:
+            return None
+        for nn in (n, f.neg(n)):
+            x0 = f.sqrt(f.div_by_2(f.add(a[0], nn)))
+            if x0 is None:
+                continue
+            if x0 == 0:
+                x1 = f.sqrt(f.div(a[0], self.qnr)) if a[1] == 0 else None
+                if x1 is not None:
+                    return (0, x1)
+                continue
+            x1 = f.div(a[1], f.add(x0, x0))
+            if self.sqr((x0, x1)) == a:
+                return (x0, x1)
+        return None
