@@ -5,8 +5,10 @@
 The main paths are the BLS12-381 G2 and G1 Pippenger MSMs of 2^20 points
 (zikkurat_algebra_tpu_torch, `CurveKernels(...).msm(grp).msm_std`, c from
 `window_size`, block 512), loading a compressed SRS (`decompress_g1`,
-`decompress_g2`, `is_in_subgroup`, `Field.sqrt`), and the BLS12-381 Fr
-NTT, polynomial and group FFT path (`NTTDomain`, `PolyOps`, `GroupFFT`).
+`decompress_g2`, `is_in_subgroup`, `Field.sqrt`), the BLS12-381 Fr
+NTT, polynomial and group FFT path (`NTTDomain`, `PolyOps`, `GroupFFT`)
+and the goldilocks NTT, the BLS12-381 pairing (`get_pairing`) and KZG
+commit, open and verify (`protocols.kzg`).
 The script
 
 1. prints the card and its power limit, builds the five CUDA kernels from
@@ -64,7 +66,22 @@ The script
       at a random point, `eval_at` and `quot_by_vanishing` (the KZG
       opening's steps) against Python Horner evaluations;
    d. group FFT over G1 at 2^14 (the seeds tiled): `fft` at two outputs
-      against `msm_std` with scalars w^(j k), ifft(fft(P)) == P.
+      against `msm_std` with scalars w^(j k), ifft(fft(P)) == P;
+   e. K5 at W = 2: a full goldilocks NTT of 2^20 through the kernel and
+      its plain version, stage by stage, then `NTTDomain.ntt` equal to it,
+      intt(ntt(x)) == x and three outputs against the sums;
+7. pairing path, BLS12-381 (`PairingKernels`), on random points from a
+   seeded torch.Generator: `pairing` on 1024 pairs (its first two values
+   against the oracle), at batch 1, `miller_loop` and `final_exp` apart,
+   bilinearity, pairing_product([P, -P], [Q, Q]) = 1 and the product of
+   1024 pairs equal to the product of their pairings; the time and the
+   launches of each call;
+8. KZG path, BLS12-381 at n = 4096 (an EIP-4844 blob,
+   protocols/kzg.py): `new_setup` by both Lagrange routes (equal), the
+   first 8 tau_g1 and tau_g2 against the oracle, `commit_values` of a
+   random blob equal to `commit_poly` of its intt, `opening_proof` with
+   y0 equal to Horner, `verify_proof` true for it and false for y0 + 1
+   and for another point's proof; the time and launches of each step.
 
 It imports torch, numpy and the port, never JAX.  It fails (nonzero exit,
 no result line) without a CUDA card, outside a checkout, or when any
@@ -558,16 +575,18 @@ def horner(coeffs, z: int, p: int) -> int:
     return acc
 
 
-def phase_k5(device, log_n, int_rate, rng):
-    """K5 over one full radix-2 NTT of 2^log_n random Fr elements against
-    its plain version, stage by stage; times per stage and per NTT."""
+def phase_k5(device, log_n, int_rate, rng, params=None):
+    """K5 over one full radix-2 NTT of 2^log_n random elements of `params`
+    (default BLS12-381 Fr) against its plain version, stage by stage;
+    times per stage and per NTT.  Returns the row and the kernel's
+    output of the last stage."""
     import torch
     from zikkurat_algebra_tpu_torch import params as P
     from zikkurat_algebra_tpu_torch.ops import kernel_ntt
     from zikkurat_algebra_tpu_torch.ops.field import Field
     from zikkurat_algebra_tpu_torch.ops.ntt import NTTDomain
 
-    f = Field(P.BLS12_381_FR, device)
+    f = Field(params or P.BLS12_381_FR, device)
     n = 1 << log_n
     dom = NTTDomain(f, log_n)
     tables = dom.tables()
@@ -602,7 +621,7 @@ def phase_k5(device, log_n, int_rate, rng):
     b_by = bounds[-1][1]
     t_bytes = sum(nbytes) / log_n / HBM_BYTES_PER_S * 1e3
     t_ops = nops / int_rate * 1e3
-    log(f"# K5 ntt_stage BLS12-381/Fr n=2^{log_n}: all {log_n} stages equal "
+    log(f"# K5 ntt_stage {f.params.name} n=2^{log_n}: all {log_n} stages equal "
         f"to plain; kernel {ms:.4f} ms per stage, {sum(stage_ms):.3f} ms "
         f"per NTT; plain {plain_ms:.3f} ms per stage; bound {b_ms:.4f} ms "
         f"per stage, {b_ms * log_n:.3f} ms per NTT ({b_by}: bytes "
@@ -613,7 +632,51 @@ def phase_k5(device, log_n, int_rate, rng):
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 bound_ms_per_ntt=b_ms * log_n, bytes_ms=t_bytes,
                 operations_ms=t_ops, library_ms=None, max_abs_err=err,
-                shape=f"(8, 1, 2^{log_n}, 1) BLS12-381/Fr, one stage")
+                shape=f"({f.W}, 1, 2^{log_n}, 1) {f.params.name}, one "
+                      "stage"), (x, yk)
+
+
+def phase_goldilocks(device, log_n, int_rate, rng):
+    """K5 at W = 2: one full NTT of 2^log_n goldilocks elements through
+    the kernel and its plain version, stage by stage (`phase_k5`), then
+    `NTTDomain.ntt` / `intt` on the card: ntt equal to the kernel's
+    stage-by-stage result, intt(ntt(x)) == x, three outputs equal to
+    sum_j x_j g^(j k)."""
+    import torch
+    from zikkurat_algebra_tpu_torch import params as P
+    from zikkurat_algebra_tpu_torch.ops.field import Field
+    from zikkurat_algebra_tpu_torch.ops.ntt import NTTDomain
+
+    prm = P.TEST_PRIMES["goldilocks"]
+    row, (x, yk) = phase_k5(device, log_n, int_rate, rng, prm)
+    f = Field(prm, device)
+    dom = NTTDomain(f, log_n).prepare()
+    reset_counts()
+    y, ntt_ms = timed(lambda: dom.ntt(x), device)
+    back, intt_ms = timed(lambda: dom.intt(y), device)
+    launches = read_counts(device, "goldilocks NTT", ("ntt_stage",
+                                                     "mont_mul"))
+    if not torch.equal(y, yk.reshape(y.shape)):
+        raise AssertionError("goldilocks ntt differs from the kernel's "
+                             "stage-by-stage NTT")
+    if not torch.equal(back, x):
+        raise AssertionError("goldilocks intt(ntt(x)) != x")
+    n = 1 << log_n
+    xs = f.decode(x)
+    k3 = int(rng.integers(2, n))
+    for k, g in zip((0, 1, k3), f.decode(y[:, [0, 1, k3]])):
+        w, acc, tot = pow(dom.gen, k, f.p), 1, 0
+        for v in xs:
+            tot += v * acc
+            acc = acc * w % f.p
+        if tot % f.p != g:
+            raise AssertionError(f"goldilocks NTT output {k} differs from "
+                                 "the sum")
+    log(f"# goldilocks NTT 2^{log_n}: ntt equals the stage-by-stage K5 "
+        f"NTT, intt(ntt(x)) == x, outputs 0, 1, {k3} equal the sums; ntt "
+        f"{ntt_ms:.3f} ms, intt {intt_ms:.3f} ms (first calls, host clock)")
+    row.update(ntt_ms=ntt_ms, intt_ms=intt_ms)
+    return launches, row
 
 
 def phase_ntt(device, log_n, rng):
@@ -748,6 +811,168 @@ def phase_gfft(ck, device, log_n, block, rng):
         f"scalars w^(j k); ifft(fft(P)) == P; fft {fft_ms:.0f} ms, ifft "
         f"{ifft_ms:.0f} ms")
     return launches, {"fft": fft_ms, "ifft": ifft_ms}
+
+
+def counted_call(per, times, device, name, fn):
+    """fn() once, its launches per kernel in per[name] and its host-clock
+    ms (device synchronised around it) in times[name]."""
+    before = {k: c.launches for k, c in counters().items()}
+    out, times[name] = timed(fn, device)
+    per[name] = {k: c.launches - before[k] for k, c in counters().items()
+                 if c.launches != before[k]}
+    return out
+
+
+def phase_pairing(device, batch, rng):
+    """The BLS12-381 pairing on random points ([k] G for k from a seeded
+    torch.Generator): `pairing` on `batch` pairs (the main-path run, its
+    launches counted), its first two values against the oracle, the
+    bilinearity e([a]P, Q) = e(P, [a]Q) = e(P, Q)^a,
+    pairing_product([P, -P], [Q, Q]) = 1, pairing_product of the batch
+    equal to the product of its pairings; times `pairing` at 1 and
+    `batch` pairs, `pairing_product` at 2 and `batch`, and `miller_loop`
+    and `final_exp` apart, with the launches of each call."""
+    import torch
+    from zikkurat_algebra_tpu_torch import params as P
+    from zikkurat_algebra_tpu_torch.ops.pairing import get_pairing
+
+    pk = get_pairing(P.BLS12_381, device)
+    ck, tw = pk.ck, pk.tower
+    f12, o12 = tw.fp12, pk.oracle.f12
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(1 << 62)))
+    Pa = ck.g1.to_affine(ck.rnd_point(gen, (batch,), "g1"))
+    Qa = ck.g2.to_affine(ck.rnd_point(gen, (batch,), "g2"))
+    sync(device)
+    per, times = {}, {}
+    call = lambda name, fn: counted_call(per, times, device, name, fn)
+
+    reset_counts()
+    e = call(f"pairing x{batch}", lambda: pk.pairing(Pa, Qa))
+    launches = read_counts(device, "pairing", ("mont_mul",))
+    two = lambda A: tuple(t[..., :2] for t in A)
+    ps, qs = ck.decode_g1(two(Pa)), ck.decode_g2(two(Qa))
+    want = [pk.oracle.pairing(p, q) for p, q in zip(ps, qs)]
+    if tw.decode_fp12(e[..., :2]) != want:
+        raise AssertionError("pairing differs from the oracle on the 2-pair "
+                             "prefix")
+    one = lambda A: tuple(t[..., :1] for t in A)
+    e1 = call("pairing x1", lambda: pk.pairing(one(Pa), one(Qa)))
+    f1 = call("miller_loop x1", lambda: pk.miller_loop(one(Pa), one(Qa)))
+    g1 = call("final_exp x1", lambda: pk.final_exp(f1))
+    fb = call(f"miller_loop x{batch}", lambda: pk.miller_loop(Pa, Qa))
+    gb = call(f"final_exp x{batch}", lambda: pk.final_exp(fb))
+    if not (torch.equal(e1, e[..., :1]) and torch.equal(g1, e1)
+            and torch.equal(gb, e)):
+        raise AssertionError("pairing at batch 1, or final_exp(miller_loop), "
+                             "differs from the batch's pairing")
+
+    a = int(rng.integers(2, 1 << 62))
+    P0 = ck.g1.from_affine(one(Pa))
+    Q0 = ck.g2.from_affine(one(Qa))
+    aP = ck.g1.to_affine(ck.g1.scalar_mul_static(a, P0))
+    aQ = ck.g2.to_affine(ck.g2.scalar_mul_static(a, Q0))
+    cat = lambda *As: tuple(torch.cat(ts, -1) for ts in zip(*As))
+    bil = tw.decode_fp12(call("pairing x3 (bilinearity)", lambda: pk.pairing(
+        cat(aP, one(Pa), one(Pa)), cat(one(Qa), aQ, one(Qa)))))
+    if not (bil[0] == bil[1] == o12.pow(bil[2], a) and bil[2] != o12.one):
+        raise AssertionError("bilinearity e([a]P, Q) = e(P, [a]Q) = "
+                             "e(P, Q)^a fails")
+    negP = ck.g1.to_affine(ck.g1.neg(P0))
+    prod2 = call("pairing_product x2", lambda: pk.pairing_product(
+        cat(one(Pa), negP), cat(one(Qa), one(Qa))))
+    if tw.decode_fp12(prod2) != o12.one:
+        raise AssertionError("pairing_product([P, -P], [Q, Q]) != 1")
+    prodb = call(f"pairing_product x{batch}",
+                 lambda: pk.pairing_product(Pa, Qa))
+    acc = e
+    while acc.shape[-1] > 1:
+        k = acc.shape[-1]
+        if k % 2:
+            acc = torch.cat([acc, f12.one((1,))], -1)
+            k += 1
+        acc = f12.mul(acc[..., :k // 2], acc[..., k // 2:])
+    if not torch.equal(prodb, acc[..., 0]):
+        raise AssertionError("pairing_product differs from the product of "
+                             "the pairings")
+    log(f"# pairing BLS12-381: the 2-pair prefix of pairing x{batch} equals "
+        f"the oracle; batch 1 and final_exp(miller_loop) equal it; "
+        f"e([a]P, Q) = e(P, [a]Q) = e(P, Q)^a; e(P, Q) e(-P, Q) = 1; "
+        f"pairing_product x{batch} = the product of the pairings")
+    for name, ms in times.items():
+        n = int(name.split(" x")[1].split()[0])
+        rate = (f", {n / ms * 1e3:.1f} pairs/s" if name.startswith("pairing")
+                else "")
+        log(f"# pairing {name}: {ms:.1f} ms{rate}; launches "
+            f"{json.dumps(per[name])}")
+    return launches, dict(ms=times, launches_per_call=per)
+
+
+def phase_kzg(ck, device, log_n, rng):
+    """KZG on BLS12-381 at n = 2^log_n (an EIP-4844 blob at 12): new_setup
+    by both Lagrange routes (equal), the first 8 tau_g1 and tau_g2 against
+    the oracle; commit_values of a random blob equal to commit_poly of its
+    intt; opening_proof at a random x0 with y0 equal to Horner;
+    verify_proof true for it, false for y0 + 1 and for the proof of
+    another point.  Times and launches of each step."""
+    import torch
+    from zikkurat_algebra_tpu_torch import params as P
+    from zikkurat_algebra_tpu_torch.ops.ntt import get_domain
+    from zikkurat_algebra_tpu_torch.protocols import kzg
+
+    fr, og1, og2 = ck.fr, ck.oracle_g1, ck.oracle_g2
+    n = 1 << log_n
+    tau = int.from_bytes(rng.bytes(40), "little") % fr.p
+    per, times = {}, {}
+    call = lambda name, fn: counted_call(per, times, device, name, fn)
+    reset_counts()
+    setup = call("new_setup", lambda: kzg.new_setup(P.BLS12_381, log_n, tau,
+                                                     device=device))
+    gsetup = call("new_setup (group iFFT)", lambda: kzg.new_setup(
+        P.BLS12_381, log_n, tau, use_group_fft=True, device=device))
+    same = all(torch.equal(u, v) for u, v in zip(setup.lagrange_tau_g1,
+                                                 gsetup.lagrange_tau_g1))
+    if not same or any(not torch.equal(u, v) for u, v in zip(
+            setup.tau_g1, gsetup.tau_g1)):
+        raise AssertionError("new_setup: the scalar and group-iFFT routes "
+                             "differ")
+    first = ck.decode_g1(tuple(t[..., :8] for t in setup.tau_g1))
+    if first != [og1.scalar_mul(pow(tau, i, fr.p), og1.gen)
+                 for i in range(8)] or ck.decode_g2(setup.tau_g2) != [
+                     og2.scalar_mul(tau, og2.gen)]:
+        raise AssertionError("new_setup: tau_g1[:8] or tau_g2 differs from "
+                             "the oracle")
+    values = torch.from_numpy(rand_canonical(rng, fr.p, fr.W, n)).to(device)
+    com_v = call("commit_values", lambda: kzg.commit_values(setup, values))
+    coeffs = call("intt", lambda: get_domain(fr, log_n).intt(values))
+    com_p = call("commit_poly", lambda: kzg.commit_poly(setup, coeffs))
+    if not bool(ck.g1.eq(com_v, com_p)):
+        raise AssertionError("commit_values(v) != commit_poly(intt(v))")
+    x0, x1 = (fr.encode(int.from_bytes(rng.bytes(40), "little") % fr.p)
+              for _ in range(2))
+    y0, proof = call("opening_proof", lambda: kzg.opening_proof(
+        setup, coeffs, x0))
+    if fr.decode(y0) != horner(fr.decode(coeffs), fr.decode(x0), fr.p):
+        raise AssertionError("opening_proof: y0 differs from Horner")
+    ok = call("verify_proof", lambda: kzg.verify_proof(setup, com_p, proof,
+                                                       x0, y0))
+    launches = read_counts(device, "KZG", ("mont_mul", "bucket_scan",
+                                           "sort_key_val", "ntt_stage"))
+    bad_y = kzg.verify_proof(setup, com_p, proof, x0,
+                             fr.add(y0, fr.one(())))
+    _, proof1 = kzg.opening_proof(setup, coeffs, x1)
+    bad_x = kzg.verify_proof(setup, com_p, proof1, x0, y0)
+    if not bool(ok) or bool(bad_y) or bool(bad_x):
+        raise AssertionError(f"verify_proof: honest {bool(ok)}, y0 + 1 "
+                             f"{bool(bad_y)}, another x0's proof "
+                             f"{bool(bad_x)}")
+    log(f"# KZG BLS12-381 n=2^{log_n}: both Lagrange routes equal, tau_g1[:8] "
+        f"and tau_g2 equal the oracle, commit_values(v) = "
+        f"commit_poly(intt(v)), y0 = Horner, verify true for the honest "
+        f"proof, false for y0 + 1 and for another x0's proof")
+    for name, ms in times.items():
+        log(f"# KZG {name}: {ms:.1f} ms; launches {json.dumps(per[name])}")
+    return launches, dict(ms=times, launches_per_call=per)
 
 
 def oracle_decompress(og, sqrt, x, par):
@@ -905,7 +1130,8 @@ def tiled_seeds(ck, grp, n, device):
 
 def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
         block: int = 512, ntt_log_n: int = 20, gfft_log_n: int = 14,
-        srs_log_n: int = 20, srs_g2_log_n: int = 12):
+        srs_log_n: int = 20, srs_g2_log_n: int = 12, gold_log_n: int = 20,
+        pairing_batch: int = 1024, kzg_log_n: int = 12):
     import torch
     from zikkurat_algebra_tpu_torch import params as P
     from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
@@ -957,13 +1183,21 @@ def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
         ck, device, srs_log_n, srs_g2_log_n, srs_log_n, rng)
 
     # the NTT, polynomial and group-FFT path
-    meas["ntt_stage"] = phase_k5(device, ntt_log_n, int_rate, rng)
+    meas["ntt_stage"], _ = phase_k5(device, ntt_log_n, int_rate, rng)
     launches["ntt"], meas["ntt_stage"]["ntt_path"] = phase_ntt(
         device, ntt_log_n, rng)
     launches["poly"], meas["ntt_stage"]["poly_ms"] = phase_poly(
         device, ntt_log_n, rng)
     launches["gfft"], meas["ntt_stage"]["gfft_ms"] = phase_gfft(
         ck, device, gfft_log_n, block, rng)
+    launches["ntt_goldilocks"], meas["ntt_stage"]["goldilocks"] = \
+        phase_goldilocks(device, gold_log_n, int_rate, rng)
+
+    # the pairing, and KZG commit / open / verify
+    launches["pairing"], meas["mont_mul"]["pairing_path"] = phase_pairing(
+        device, pairing_batch, rng)
+    launches["kzg"], meas["mont_mul"]["kzg_path"] = phase_kzg(
+        ck, device, kzg_log_n, rng)
 
     rows = []
     for name, (src, rep) in KERNELS.items():

@@ -1,7 +1,8 @@
 """Kernels K1 to K5 on the card against their plain torch versions (K2
 and K4 as points, after `to_affine`; the others limb for limb; K1 at
-every width it takes), small G1 and G2 MSMs and NTTs and the G1
-decompression and subgroup test on the card against the oracle.
+every width it takes, K5 at W = 8 and 2), small G1 and G2 MSMs and NTTs
+and the G1 decompression and subgroup test on the card against the
+oracle, and the pairing and KZG on the card against the port on the CPU.
 
 Every test here is marked `gpu` and skips, from inside the `cuda_device`
 fixture, on a host without a CUDA card.  The file imports neither JAX nor
@@ -399,3 +400,94 @@ def test_ntt_on_card_vs_oracle(cuda_device, m, four_step):
     assert f.decode(y) == want
     assert f.decode(dom.intt(y)) == xs
     assert f.decode(dom.intt(x))[:n] == oracle_intt(f.p, dom.gen, xs[:n])
+
+
+@pytest.mark.gpu
+def test_ntt_stage_kernel_goldilocks(cuda_device):
+    """K5 at W = 2 (goldilocks, p above R / 2) equals its plain version at
+    every stage, and a goldilocks NTT round trip on the card equals the
+    oracle."""
+    f = Field(P.TEST_PRIMES["goldilocks"], device=cuda_device)
+    assert f.W == 2
+    vals = _rand_fr(f, 3 * 256, 5)
+    vals[0] = f.p - 1
+    x = f.encode(vals).reshape(f.W, 3, 256, 1)
+    for s in range(1, 9):
+        tw = f.encode(_rand_fr(f, 1 << (s - 1), 200 + s))
+        before = kernel_ntt.ntt_stage.launches
+        got = kernel_ntt.ntt_stage(x.clone(), tw, s, f)
+        torch.cuda.synchronize()
+        assert kernel_ntt.ntt_stage.launches == before + 1
+        assert torch.equal(got, kernel_ntt.ntt_stage_plain(x.clone(), tw, s,
+                                                           f))
+    m = 9
+    xs = _rand_fr(f, 1 << m, 7)
+    dom = NTTDomain(f, m).prepare()
+    y = dom.ntt(f.encode(xs))
+    assert f.decode(y) == oracle_ntt(f.p, dom.gen, xs)
+    assert f.decode(dom.intt(y)) == xs
+
+
+def _pairing_inputs(ck, n, seed):
+    """n G1 and n G2 oracle points, the last pair with P at infinity."""
+    rng = random.Random(seed)
+    ps = [ck.oracle_g1.rnd(rng) for _ in range(n)]
+    qs = [ck.oracle_g2.rnd(rng) for _ in range(n)]
+    ps[-1] = None
+    return ps, qs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve", [P.BLS12_381, P.BN128],
+                         ids=["BLS12-381", "BN128"])
+def test_pairing_on_card_vs_cpu(cuda_device, curve):
+    """miller_loop, pairing and pairing_product on the card equal the port
+    on the CPU, decoded; a batch of Fp12 products is one K1 launch."""
+    from zikkurat_algebra_tpu_torch.ops.pairing import get_pairing
+
+    gpu, cpu = get_pairing(curve, cuda_device), get_pairing(curve, "cpu")
+    ps, qs = _pairing_inputs(gpu.ck, 3, 31)
+    args = {k: (pk.ck.encode_g1(ps), pk.ck.encode_g2(qs))
+            for k, pk in (("gpu", gpu), ("cpu", cpu))}
+    dec = cpu.tower.decode_fp12
+    f = gpu.miller_loop(*args["gpu"])
+    assert dec(f.cpu()) == dec(cpu.miller_loop(*args["cpu"]))
+    before = kernel_field.mont_mul.launches
+    gpu.tower.fp12.mul_list([(f, f), (f, gpu.tower.fp12_conj(f))])
+    torch.cuda.synchronize()
+    assert kernel_field.mont_mul.launches == before + 1
+    assert dec(gpu.pairing(*args["gpu"]).cpu()) == dec(
+        cpu.pairing(*args["cpu"]))
+    assert dec(gpu.pairing_product(*args["gpu"]).cpu()) == dec(
+        cpu.pairing_product(*args["cpu"]))
+
+
+@pytest.mark.gpu
+def test_kzg_on_card_vs_cpu(cuda_device):
+    """new_setup (both Lagrange routes), commit_poly, commit_values,
+    opening_proof and verify_proof on the card equal the port on the CPU
+    (BN128, 2^3 points)."""
+    from zikkurat_algebra_tpu_torch.protocols import kzg
+
+    rng = random.Random(41)
+    curve = P.BN128
+    tau = rng.randrange(2, curve.fr.p)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        s = kzg.new_setup(curve, 3, tau, device=dev)
+        sg = kzg.new_setup(curve, 3, tau, use_group_fft=True, device=dev)
+        ck = CurveKernels(curve, device=dev)
+        fr = ck.fr
+        r = random.Random(42)
+        coeffs = fr.encode([r.randrange(fr.p) for _ in range(8)])
+        x0 = fr.encode(r.randrange(fr.p))
+        com = kzg.commit_poly(s, coeffs)
+        y0, proof = kzg.opening_proof(s, coeffs, x0)
+        aff = lambda pt: ck.decode_g1(ck.g1.to_affine(pt))
+        out[dev] = (ck.decode_g1(s.tau_g1), ck.decode_g1(s.lagrange_tau_g1),
+                    ck.decode_g1(sg.lagrange_tau_g1), ck.decode_g2(s.tau_g2),
+                    aff(com), aff(kzg.commit_values(s, coeffs)),
+                    fr.decode(y0), aff(proof),
+                    bool(kzg.verify_proof(s, com, proof, x0, y0)))
+    assert out[cuda_device] == out["cpu"]
+    assert out["cpu"][-1] and out["cpu"][1] == out["cpu"][2]

@@ -77,7 +77,9 @@ cudaError_t launch(int32_t* x, const int32_t* tw, const int32_t* p,
 
 }  // namespace
 
-// C entry point bound with ctypes.  x is (W, nbatch, 2^log_rows,
+// C entry point bound with ctypes, instantiated for the widths of the
+// fields with an FFT domain: W = 8 (the Fr of BN128, BLS12-381 and
+// BLS12-377) and W = 2 (goldilocks).  x is (W, nbatch, 2^log_rows,
 // 2^log_lanes), tw the (W, 2^(s-1)) table of stage s in 1..log_rows.
 // Returns a cudaError_t (0 = launched).
 extern "C" int zk_ntt_stage(void* x, const void* tw, const void* p,
@@ -91,6 +93,7 @@ extern "C" int zk_ntt_stage(void* x, const void* tw, const void* p,
   auto T = static_cast<const int32_t*>(tw);
   auto P = static_cast<const int32_t*>(p);
   switch (W) {
+    case 2: return launch<2>(X, T, P, n0, nbatch, log_rows, log_lanes, s, st);
     case 8: return launch<8>(X, T, P, n0, nbatch, log_rows, log_lanes, s, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

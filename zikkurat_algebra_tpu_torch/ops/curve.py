@@ -413,16 +413,21 @@ class CurveKernels:
                 "only)")
         return self.g2, self.oracle_g2, self.encode_g2
 
+    def generator(self, n: int, grp: str = "g1") -> Point:
+        """n copies of the generator of "g1" or "g2" as projective points
+        (coordinates (W, n) or (W, 2, n))."""
+        ops, og, enc = self._group(grp)
+        return tuple(c.expand(c.shape[:-1] + (n,)).contiguous()
+                     for c in ops.from_affine(enc([og.gen])))
+
     def rnd_point(self, gen: torch.Generator, batch_shape=(),
                   grp: str = "g1") -> Point:
         """Random subgroup points [k] G for k drawn by `Field.rnd` of Fr
         from `gen` (curve.py:460), as projective points of batch_shape."""
-        ops, og, enc = self._group(grp)
+        ops = self._group(grp)[0]
         n = int(np.prod(batch_shape)) if batch_shape else 1
-        G = tuple(c.expand(c.shape[:-1] + (n,)).contiguous()
-                  for c in ops.from_affine(enc([og.gen])))
         k = self.fr.from_mont(self.fr.rnd(gen, (n,)))
-        P = ops.scalar_mul_fr_std(k, G)
+        P = ops.scalar_mul_fr_std(k, self.generator(n, grp))
         return tuple(c.reshape(c.shape[:-1] + tuple(batch_shape)) for c in P)
 
     def msm(self, grp: str = "g1"):

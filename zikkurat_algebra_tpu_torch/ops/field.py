@@ -162,6 +162,21 @@ class Field:
             return a
         return self.scale_small(a, k)
 
+    def times(self, a, k: int):
+        """k a for a small int k by additions alone (double-and-add over
+        the bits of |k|), so no product is launched: the carry-free
+        small-int scaling of the JAX package (field.py:289)."""
+        if k < 0:
+            return self.neg(self.times(a, -k))
+        if k == 0:
+            return torch.zeros_like(a)
+        acc = a
+        for bit in bin(k)[3:]:
+            acc = self.add(acc, acc)
+            if bit == "1":
+                acc = self.add(acc, a)
+        return acc
+
     def div2(self, a):
         """a / 2: one product by the constant 1/2 (field.py:298)."""
         return self.scale_small(a, (self.p + 1) // 2)

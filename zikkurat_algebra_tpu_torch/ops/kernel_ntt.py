@@ -10,7 +10,7 @@ twiddle table.  All B batches and all `lanes` columns run the same
 butterflies.
 
 On a CUDA tensor the wrapper launches the hand-written kernel of
-`csrc/ntt_stage.cu` (one thread per pair, W = 8 only); on a CPU tensor it
+`csrc/ntt_stage.cu` (one thread per pair, W = 8 or 2); on a CPU tensor it
 runs `ntt_stage_plain`.  There is no other path: another device, another
 W on the card, a failed build or a refused launch raises.
 
@@ -80,7 +80,7 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [
     ctypes.c_uint32, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
-KERNEL_W = (8,)             # the widths csrc/ntt_stage.cu is built for
+KERNEL_W = (2, 8)           # the widths csrc/ntt_stage.cu is built for
 
 
 def ntt_stage(x: torch.Tensor, tw: torch.Tensor, s: int, f) -> torch.Tensor:

@@ -70,6 +70,21 @@ def _shifts(W: int, device: str) -> torch.Tensor:
     return torch.arange(W, dtype=I64, device=device)
 
 
+@lru_cache(maxsize=None)
+def _weights(W: int, device: str) -> torch.Tensor:
+    return torch.ones(W, dtype=I64, device=device) << _shifts(W, device)
+
+
+@lru_cache(maxsize=None)
+def _not_plus_one(W: int, device: str) -> torch.Tensor:
+    """The columns M32, ..., M32 plus 1 at column 0: their value is
+    2^(32 W), so x - y + this is x - y + 2^(32 W) with every column of
+    x - y + this nonnegative for limbs x, y."""
+    c = torch.zeros(W, dtype=I64, device=device)
+    c[0] = 1
+    return c + M32
+
+
 def bcast(v: torch.Tensor, ndim: int) -> torch.Tensor:
     """(W,) constant -> (W, 1, ..., 1) view broadcasting over ndim axes."""
     return v.view((v.shape[0],) + (1,) * (ndim - 1))
@@ -90,11 +105,13 @@ def carry_ins(gen: torch.Tensor, prop: torch.Tensor):
     from the generate and propagate flags (W, *batch), W <= 60; the
     columns may be of any radix."""
     W = gen.shape[0]
-    sh = bcast(_shifts(W, str(gen.device)), gen.ndim)
-    G = (gen.to(I64) << sh).sum(0)
-    P = (prop.to(I64) << sh).sum(0)
+    dev = str(gen.device)
+    w = bcast(_weights(W, dev), gen.ndim)
+    G = (gen * w).sum(0)
+    P = (prop * w).sum(0)
     c = ((G << 1) + P) ^ P
-    return (c.unsqueeze(0) >> sh) & 1, (c >> W) & 1
+    return (c.unsqueeze(0) >> bcast(_shifts(W, dev), gen.ndim)) & 1, \
+        (c >> W) & 1
 
 
 def add_carry(s: torch.Tensor):
@@ -113,23 +130,40 @@ def sub_borrow(d: torch.Tensor):
     return (r - bin_) & M32, bout
 
 
+def _carry_once(x: torch.Tensor) -> torch.Tensor:
+    """Columns in [0, 3 * 2^32) -> columns in [0, 2^32 + 2) of the same
+    value mod 2^(32 W) (each column's high part moved up one)."""
+    hi = x >> 32
+    return (x & M32) + torch.cat([torch.zeros_like(hi[:1]), hi[:-1]], 0)
+
+
 # -- modular add / sub / neg on canonical values -----------------------------
+#
+# a + b and a - b each have two candidates, the plain value and the value
+# corrected by p; both go through ONE carry resolution, stacked.
 
 def add_mod(a: torch.Tensor, b: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """(a + b) mod p for canonical a, b; p is the (W,) int64 modulus."""
-    pb = bcast(p, a.ndim)
-    s, cout = add_carry(to64(a) + to64(b))
-    d, bout = sub_borrow(s - pb)
-    keep_d = (cout | (1 - bout)).bool().unsqueeze(0)
-    return to32(torch.where(keep_d, d, s))
+    """(a + b) mod p for canonical a, b; p is the (W,) int64 modulus.
+    Candidates a + b and a + b - p + 2^(32W); the second wraps past
+    2^(32W) exactly when a + b >= p."""
+    s = to64(a) + to64(b)                                   # [0, 2^33)
+    d = s - bcast(p, a.ndim) + bcast(
+        _not_plus_one(a.shape[0], str(a.device)), a.ndim)  # [0, 3 2^32)
+    top = d[-1] >> 32
+    limbs, cout = add_carry(torch.stack([s, _carry_once(d)], 1))
+    wrap = (cout[1] + top).bool().unsqueeze(0)
+    return to32(torch.where(wrap, limbs[:, 1], limbs[:, 0]))
 
 
 def sub_mod(a: torch.Tensor, b: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """(a - b) mod p for canonical a, b."""
-    pb = bcast(p, a.ndim)
-    d, bout = sub_borrow(to64(a) - to64(b))
-    s, _ = add_carry(d + pb)
-    return to32(torch.where(bout.bool().unsqueeze(0), s, d))
+    """(a - b) mod p for canonical a, b.  Candidates a + ~b + 1 (which
+    wraps past 2^(32W) exactly when a >= b, to a - b) and that plus p."""
+    x = to64(a) - to64(b) + bcast(_not_plus_one(a.shape[0], str(a.device)),
+                                  a.ndim)                   # [0, 2^33)
+    y = _carry_once(x + bcast(p, a.ndim))
+    limbs, cout = add_carry(torch.stack([x, y], 1))
+    return to32(torch.where(cout[0].bool().unsqueeze(0), limbs[:, 0],
+                            limbs[:, 1]))
 
 
 def neg_mod(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

@@ -109,3 +109,35 @@ class CurveGroup:
     def rnd(self, rng) -> AffinePoint:
         """[k] gen for k uniform in [1, r) from `rng` (a random.Random)."""
         return self.scalar_mul(rng.randrange(1, self.r), self.gen)
+
+    # -- group FFT -------------------------------------------------------------
+    def fft(self, gen: int, points: Sequence[AffinePoint],
+            inverse: bool = False):
+        """out[k] = sum_j [gen^(j k)] P_j over a domain of size n = 2^m of
+        the scalar field (gen of order n); the inverse uses gen^-1 and
+        multiplies by 1/n."""
+        n = len(points)
+        if n & (n - 1):
+            raise ValueError(f"group FFT of length {n}: not a power of two")
+        if inverse:
+            gen = pow(gen, -1, self.r)
+        out = self._fft_rec(gen, list(points))
+        if inverse:
+            ninv = pow(n, -1, self.r)
+            out = [self.scalar_mul(ninv, pt) for pt in out]
+        return out
+
+    def _fft_rec(self, gen: int, xs):
+        n = len(xs)
+        if n == 1:
+            return xs
+        evens = self._fft_rec(gen * gen % self.r, xs[0::2])
+        odds = self._fft_rec(gen * gen % self.r, xs[1::2])
+        out = [None] * n
+        tw = 1
+        for k in range(n // 2):
+            t = self.scalar_mul(tw, odds[k])
+            out[k] = self.add(evens[k], t)
+            out[k + n // 2] = self.sub(evens[k], t)
+            tw = tw * gen % self.r
+        return out

@@ -6,8 +6,14 @@ from functools import lru_cache
 
 from ..params import CurveParams
 from .curve import CurveGroup
-from .ext import Fp2Field
+from .ext import Fp2Field, Tower
 from .field import Fp
+
+
+@lru_cache(maxsize=None)
+def tower(curve: CurveParams) -> Tower:
+    """The oracle tower Fp2 / Fp6 / Fp12 of a curve family."""
+    return Tower(curve)
 
 
 @lru_cache(maxsize=None)
@@ -24,7 +30,7 @@ def g1_group(curve: CurveParams) -> CurveGroup:
 
 @lru_cache(maxsize=None)
 def fp2_field(curve: CurveParams) -> Fp2Field:
-    return Fp2Field(Fp(curve.fp), curve.tower.qnr)
+    return tower(curve).fp2
 
 
 @lru_cache(maxsize=None)

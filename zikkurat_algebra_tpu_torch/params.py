@@ -50,7 +50,10 @@ class CurveParams:
     twist y^2 = x^3 + b2 over Fp2 (G2; b2 = None where there is none).
     `glv_beta_lambda` = (beta, lambda): beta a cube root of unity in Fp
     and lambda one in Fr such that (beta x, y) = [lambda] (x, y) or
-    [lambda^2] (x, y) on G1 (which of the two `CurveKernels` finds out)."""
+    [lambda^2] (x, y) on G1 (which of the two `CurveKernels` finds out).
+    `seed` is the curve's parameter x and `family` "bn" or "bls"; the
+    optimal-Ate Miller loop runs over `ate_loop_count` (params.py:130-143
+    of the JAX package)."""
 
     name: str
     fp: FieldParams
@@ -64,6 +67,15 @@ class CurveParams:
     b2: Optional[Fp2Int] = None
     g2_cofactor: Optional[int] = None
     g2_gen: Optional[Tuple[Fp2Int, Fp2Int]] = None
+    seed: int = 0
+    family: str = "bls"
+
+    @property
+    def ate_loop_count(self) -> int:
+        """|Miller loop scalar|: 6 x + 2 for BN, |x| for BLS."""
+        if self.family == "bn":
+            return 6 * self.seed + 2
+        return abs(self.seed)
 
 
 BN128_FP = FieldParams(
@@ -103,6 +115,8 @@ BN128 = CurveParams(
             0x0EFE500A2D02DD77F5F401329F30895DF553B878FC3C0DADAAA86456A623235C,
         ),
     ),
+    seed=4965661367192848881,
+    family="bn",
 )
 
 BLS12_381_FP = FieldParams(
@@ -143,6 +157,8 @@ BLS12_381 = CurveParams(
             927553665492332455747201965776037880757740193453592970025027978793976877002675564980949289727957565575433344219582,
         ),
     ),
+    seed=-0xD201000000010000,
+    family="bls",
 )
 
 BLS12_377_FP = FieldParams(
@@ -171,6 +187,8 @@ BLS12_377 = CurveParams(
         80949648264912719408558363140637477264845294720710499478137287262712535938301461879813459410945,
         0x452217CC900000010A11800000000000,        # z^2 - 1 mod r
     ),
+    seed=0x8508C00000000001,
+    family="bls",
 )
 
 CURVES = {"BN128": BN128, "BLS12-381": BLS12_381, "BLS12-377": BLS12_377}

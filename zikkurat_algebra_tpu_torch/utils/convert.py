@@ -6,8 +6,11 @@ Montgomery form with R' = 2^(15 L).  The port stores W radix-2^32 limbs,
 canonical, with R = 2^(32 W).  These functions go through the integer
 value: they remove one Montgomery factor and apply the other.  They keep
 every axis after the limb axis, so an Fp2 batch, JAX (L, 2, N), becomes
-the port's (W, 2, N) and back.  They work on numpy arrays, so both
-packages can read what they return.
+the port's (W, 2, N) and back, and an Fp6 or Fp12 batch, JAX
+(L, 3, 2, N) or (L, 2, 3, 2, N), the port's (W, 3, 2, N) or
+(W, 2, 3, 2, N).  They work on numpy arrays, so both packages can read
+what they return.  A KZG setup of the JAX package becomes the port's by
+`kzg_setup_from_jax`.
 """
 
 from __future__ import annotations
@@ -18,6 +21,9 @@ import numpy as np
 import torch
 
 from ..ops import limbs as lb
+from ..ops.curve import get_curves
+from ..params import CURVES
+from ..protocols.kzg import KZGSetup
 
 LB15 = 15
 
@@ -75,6 +81,55 @@ def to_jax_limbs15(limbs, field, mont: bool = True) -> np.ndarray:
         r15 = 1 << (LB15 * L)
         vals = [v * field.R_inv % p * r15 % p for v in vals]
     return ints_to_limbs15(vals, L).reshape((L,) + batch)
+
+
+TOWER_SHAPES = {"fp": (), "fp2": (2,), "fp6": (3, 2), "fp12": (2, 3, 2)}
+
+
+def _check_level(shape, level: str):
+    want = TOWER_SHAPES[level]
+    if tuple(shape[1:1 + len(want)]) != want:
+        raise ValueError(f"{level} planes need component axes {want} after "
+                         f"the limb axis, got shape {tuple(shape)}")
+
+
+def from_jax_tower(planes, fp, level: str) -> np.ndarray:
+    """JAX (L, *components, *batch) planes of a tower level ("fp2",
+    "fp6" or "fp12", Montgomery form) -> the port's (W, *components,
+    *batch) limbs of the same elements; `fp` is the port's base field."""
+    planes = np.asarray(planes)
+    _check_level(planes.shape, level)
+    return from_jax_limbs15(planes, fp)
+
+
+def to_jax_tower(limbs, fp, level: str) -> np.ndarray:
+    """The port's (W, *components, *batch) limbs of a tower level ->
+    canonical JAX (L, *components, *batch) radix-2^15 planes."""
+    limbs = np.asarray(limbs.detach().cpu() if isinstance(limbs, torch.Tensor)
+                       else limbs)
+    _check_level(limbs.shape, level)
+    return to_jax_limbs15(limbs, fp)
+
+
+def kzg_setup_from_jax(jsetup, device="cuda"):
+    """A KZG setup of the JAX package (the `KZGSetup` of its
+    protocols/kzg.py: affine (x, y, inf) batches of Montgomery planes) -> the
+    port's `KZGSetup` on `device`, with the port's curve of the same
+    name.  Only attributes and `numpy.asarray` are used, so the port
+    needs no JAX for it."""
+    curve = CURVES[jsetup.curve.name]
+    fp = get_curves(curve, device).fp
+
+    def points(aff):
+        x, y, inf = (np.asarray(t) for t in aff)
+        return tuple(torch.from_numpy(a).to(fp.device) for a in (
+            from_jax_limbs15(x, fp), from_jax_limbs15(y, fp),
+            inf.astype(bool)))
+
+    return KZGSetup(curve=curve, log2_size=jsetup.log2_size,
+                    tau_g1=points(jsetup.tau_g1),
+                    lagrange_tau_g1=points(jsetup.lagrange_tau_g1),
+                    g2=points(jsetup.g2), tau_g2=points(jsetup.tau_g2))
 
 
 def load_jax_seed_points(npz_path, fp):
