@@ -8,7 +8,8 @@ The main paths are the BLS12-381 G2 and G1 Pippenger MSMs of 2^20 points
 `decompress_g2`, `is_in_subgroup`, `Field.sqrt`), the BLS12-381 Fr
 NTT, polynomial and group FFT path (`NTTDomain`, `PolyOps`, `GroupFFT`)
 and the goldilocks NTT, the BLS12-381 pairing (`get_pairing`) and KZG
-commit, open and verify (`protocols.kzg`).
+commit, open and verify (`protocols.kzg`), BigInt, the per-curve API
+(`api.bls12_381`) and the sharded layer (`parallel/`).
 The script
 
 1. prints the card and its power limit, builds the five CUDA kernels from
@@ -81,7 +82,23 @@ The script
    first 8 tau_g1 and tau_g2 against the oracle, `commit_values` of a
    random blob equal to `commit_poly` of its intt, `opening_proof` with
    y0 equal to Horner, `verify_proof` true for it and false for y0 + 1
-   and for another point's proof; the time and launches of each step.
+   and for another point's proof; the time and launches of each step;
+9. BigInt (ops/bigint.py, plain torch ops, no kernel) at 256, 384 and
+   768 bits on 2^20 random values: every operation, a 2^10 prefix
+   against Python ints, host-clock ms of a second call, peak memory;
+10. the per-curve API, `api.bls12_381("cuda")`: msm_g1.msm_mont of 2^20
+   equal to msm_std, msm_g2.msm_mont of 2^16 equal to the oracle
+   (folded), ntt_domain(20).ntt equal to NTTDomain, pairing of one pair
+   equal to the oracle, K1-K5 each launched; then a torch.profiler trace
+   of one G1 msm_mont of 2^16 (in a temporary directory): the ten
+   kernels with the most device time and the device-busy share of the
+   traced window and of the same call untraced;
+11. the sharded layer (parallel/) in a world of 1 over NCCL:
+   sharded_msm, ShardedNTT, ShardedPolyOps and sharded_sum / _dot at
+   2^20 against their single-device functions and Horner, and
+   ShardedGroupFFT at 2^10 against GroupFFT; K1, K2, K3 and K5 each
+   launched.  One card shows that the path and the collectives run, not
+   how they scale.
 
 It imports torch, numpy and the port, never JAX.  It fails (nonzero exit,
 no result line) without a CUDA card, outside a checkout, or when any
@@ -96,6 +113,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -486,10 +504,14 @@ def reset_counts():
         fn.launches = 0
 
 
-def read_counts(device, path, need):
-    """The launch counts since `reset_counts`; each kernel in `need` must
-    have been launched (on a card)."""
-    launches = {name: fn.launches for name, fn in counters().items()}
+def read_counts(device, path, need, per=None):
+    """The launch counts since `reset_counts` or, given the per-call
+    counts `per` of `counted_call`, their sum (so the single-device
+    references a path is compared with are left out); each kernel in
+    `need` must have been launched (on a card)."""
+    launches = {name: fn.launches if per is None else
+                sum(c.get(name, 0) for c in per.values())
+                for name, fn in counters().items()}
     log(f"# launches on the {path} path: {json.dumps(launches)}")
     for name in need:
         if launches[name] == 0 and device.type == "cuda":
@@ -523,9 +545,7 @@ def phase_msm(ck, grp, k_np, pts, seeds_aff, nseed, device, block, need):
     log(f"# {grp} MSM check (a): 2^6-prefix MSM at n={n} equals the oracle")
 
     # (b) every scalar live: fold the scalars onto the seeds
-    cols = k_np.view(np.uint32).astype(np.uint64).reshape(
-        k_np.shape[0], n // nseed, nseed).sum(1)
-    folded = [v % og.r for v in limbs_to_ints(cols_to_limbs(cols))]
+    folded = fold_scalars(k_np, nseed, og.r)
     reset_counts()
     t = time.perf_counter()
     res = msm.msm_std(k_limbs, pts, None, block)
@@ -1104,6 +1124,357 @@ def phase_srs(ck, device, log_g1, log_g2, log_sqrt, rng):
     return counts, dict(ms=times, launches_per_call=per)
 
 
+BIGINT_OPS = ("add", "sub", "neg", "mul", "mul_ext", "sqr_ext", "scale_ext",
+              "inc", "dec", "shift_left", "shift_right")
+
+
+def phase_bigint(device, log_n, rng, widths=(256, 384, 768), shift=77):
+    """BigInt (ops/bigint.py, plain torch ops, no kernel) on 2^log_n
+    random values of each width: every operation once, a 2^10 prefix of
+    each result held against Python ints exactly, then the host-clock ms
+    of a second call (device synchronised) and the peak device memory of
+    the width's calls above what the process held before them."""
+    import torch
+    from zikkurat_algebra_tpu_torch.ops.bigint import bigint
+
+    n = 1 << log_n
+    m = min(n, 1 << 10)
+    out = {}
+    for bits in widths:
+        B = bigint(bits, device)
+        top = 1 << bits
+        a, b = (torch.from_numpy(rng.integers(0, 1 << 32, (B.W, n),
+                                              dtype=np.uint64)
+                                 .astype(np.uint32).view(np.int32)).to(device)
+                for _ in range(2))
+        w = torch.from_numpy(rng.integers(0, 1 << 32, n)).to(device)
+        calls = {"add": lambda: B.add(a, b), "sub": lambda: B.sub(a, b),
+                 "neg": lambda: B.neg(a), "mul": lambda: B.mul(a, b),
+                 "mul_ext": lambda: B.mul_ext(a, b),
+                 "sqr_ext": lambda: B.sqr_ext(a),
+                 "scale_ext": lambda: B.scale_ext(w, a),
+                 "inc": lambda: B.inc(a), "dec": lambda: B.dec(a),
+                 "shift_left": lambda: B.shift_left(a, shift),
+                 "shift_right": lambda: B.shift_right(a, shift)}
+        av, bv = B.decode(a[:, :m]), B.decode(b[:, :m])
+        wv = w[:m].tolist()
+        want = {
+            "add": ([(x + y) % top for x, y in zip(av, bv)],
+                    [(x + y) // top for x, y in zip(av, bv)]),
+            "sub": ([(x - y) % top for x, y in zip(av, bv)],
+                    [int(x < y) for x, y in zip(av, bv)]),
+            "neg": [(-x) % top for x in av],
+            "mul": [x * y % top for x, y in zip(av, bv)],
+            "mul_ext": [x * y for x, y in zip(av, bv)],
+            "sqr_ext": [x * x for x in av],
+            "scale_ext": [v * x for v, x in zip(wv, av)],
+            "inc": ([(x + 1) % top for x in av], [(x + 1) // top for x in av]),
+            "dec": ([(x - 1) % top for x in av], [int(x == 0) for x in av]),
+            "shift_left": [(x << shift) % top for x in av],
+            "shift_right": [x >> shift for x in av]}
+        base = 0
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        times = {}
+        for name in BIGINT_OPS:
+            got = calls[name]()
+            if isinstance(got, tuple):
+                ok = (B.decode(got[0][:, :m]), got[1][:m].tolist()) \
+                    == want[name]
+            else:
+                ok = B.decode(got[:, :m]) == want[name]
+            if not ok:
+                raise AssertionError(f"BigInt {bits} {name} differs from "
+                                     "Python ints on the 2^10 prefix")
+            _, times[name] = timed(calls[name], device)
+        peak = (torch.cuda.max_memory_allocated() - base
+                if device.type == "cuda" else 0)
+        log(f"# BigInt {bits} n=2^{log_n}: every operation equals Python "
+            f"ints on a 2^10 prefix; peak device memory {peak} B above what "
+            "was allocated before its calls (its inputs among that); ms "
+            "(host clock, second call): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in times.items()))
+        out[bits] = dict(ms=times, peak_bytes=peak)
+    return out
+
+
+def kernel_name(name: str) -> str:
+    """A kernel's demangled name without its return type, argument list
+    and namespaces, cut to 100 characters."""
+    for junk in ("void ", "at::native::", "(anonymous namespace)::"):
+        name = name.replace(junk, "")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i][:100]
+    return name[:100]
+
+
+def trace_kernels(trace_file):
+    """From a Chrome trace: the device kernels by summed time, as (name,
+    us, count), most first, and the microseconds in which at least one
+    kernel ran."""
+    with open(trace_file) as fh:
+        events = json.load(fh)["traceEvents"]
+    ks = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    by = {}
+    for e in ks:
+        t, c = by.get(e["name"], (0.0, 0))
+        by[e["name"]] = (t + float(e["dur"]), c + 1)
+    busy, end = 0.0, None
+    for s, d in sorted((float(e["ts"]), float(e["dur"])) for e in ks):
+        if end is None or s > end:
+            busy += d
+            end = s + d
+        elif s + d > end:
+            busy += s + d - end
+            end = s + d
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])
+    return [(k, t, c) for k, (t, c) in top], busy
+
+
+def phase_api(device, log_n, g2_log_n, ntt_log_n, trace_log_n, block, rng,
+              trace_dir):
+    """The per-curve API, `bls12_381(device)`: msm_g1.msm_mont of 2^log_n
+    equal to `CurveKernels(...).msm("g1").msm_std` on the same points and
+    scalars (after to_affine); msm_g2.msm_mont of 2^g2_log_n (the first
+    64 G2 seeds tiled) equal to the oracle on the folded scalars;
+    ntt_domain(ntt_log_n).ntt equal to a fresh NTTDomain; pairing of one
+    pair equal to the oracle.  K1-K5 must each be launched.  Then a
+    torch.profiler trace of one G1 msm_mont of 2^trace_log_n: the ten
+    device kernels with the most summed time, and the traced window's
+    device-busy share; K2's and K3's kernels must be in it."""
+    import torch
+    from zikkurat_algebra_tpu_torch import api, params as P
+    from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
+    from zikkurat_algebra_tpu_torch.ops.ntt import NTTDomain
+    from zikkurat_algebra_tpu_torch.utils import profiling
+
+    a = api.bls12_381(device)
+    fr = a.fr
+    per, times = {}, {}
+    call = lambda name, fn: counted_call(per, times, device, name, fn)
+    n = 1 << log_n
+    _, _, pts = tiled_seeds(a.curves, "g1", n, device)
+    k_mont = torch.from_numpy(rand_canonical(rng, fr.p, fr.W, n)).to(device)
+    other = CurveKernels(P.BLS12_381, device).msm("g1")
+    want = other.msm_std(fr.from_mont(k_mont), pts, None, block)
+    reset_counts()
+    got = call(f"msm_g1.msm_mont 2^{log_n}",
+               lambda: a.msm_g1.msm_mont(k_mont, pts, None, block))
+    err = affine_diff(a.g1, tuple(t.unsqueeze(-1) for t in got),
+                      tuple(t.unsqueeze(-1) for t in want))
+    if err:
+        raise AssertionError("api msm_g1.msm_mont differs from msm_std")
+
+    seeds2 = tuple(t[..., :64] for t in tiled_seeds(a.curves, "g2", 64,
+                                                    device)[0])
+    n2 = 1 << g2_log_n
+    pts2 = tuple(t.repeat(*([1] * (t.ndim - 1)), n2 // 64).contiguous()
+                 for t in seeds2)
+    k2 = rand_canonical(rng, fr.p, fr.W, n2)
+    k2_mont = fr.to_mont(torch.from_numpy(k2).to(device))
+    r2 = call(f"msm_g2.msm_mont 2^{g2_log_n}",
+              lambda: a.msm_g2.msm_mont(k2_mont, pts2, None, block))
+    if a.decode_g2(a.g2.to_affine(tuple(t.unsqueeze(-1) for t in r2))) != [
+            a.curves.oracle_g2.msm(fold_scalars(k2, 64, fr.p),
+                                   a.decode_g2(seeds2))]:
+        raise AssertionError("api msm_g2.msm_mont differs from the oracle")
+
+    x = torch.from_numpy(rand_canonical(rng, fr.p, fr.W, 1 << ntt_log_n)).to(
+        device)
+    dom = a.ntt_domain(ntt_log_n).prepare()
+    y = call(f"ntt_domain({ntt_log_n}).ntt", lambda: dom.ntt(x))
+    if not torch.equal(y, NTTDomain(fr, ntt_log_n).ntt(x)):
+        raise AssertionError("api ntt_domain.ntt differs from NTTDomain")
+
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 62)))
+    Pa = a.g1.to_affine(a.curves.rnd_point(gen, (1,), "g1"))
+    Qa = a.g2.to_affine(a.curves.rnd_point(gen, (1,), "g2"))
+    e = call("pairing.pairing x1", lambda: a.pairing.pairing(Pa, Qa))
+    if a.tower.decode_fp12(e[..., :1]) != [a.pairing.oracle.pairing(
+            a.decode_g1(Pa)[0], a.decode_g2(Qa)[0])]:
+        raise AssertionError("api pairing differs from the oracle")
+    launches = read_counts(device, "API", tuple(counters()), per)
+    log(f"# API bls12_381: msm_g1.msm_mont 2^{log_n} equals msm_std, "
+        f"msm_g2.msm_mont 2^{g2_log_n} equals the oracle (folded onto 64 "
+        f"seeds), ntt_domain({ntt_log_n}).ntt equals NTTDomain, pairing x1 "
+        "equals the oracle")
+    for name, ms in times.items():
+        log(f"# API {name}: {ms:.1f} ms (host clock, first call); launches "
+            f"{json.dumps(per[name])}")
+
+    # one traced G1 MSM: recording every host op slows the host several
+    # times, not the kernels, so the kernels' busy time is also set
+    # against the wall time of the same call untraced
+    nt = 1 << trace_log_n
+    kt, pt = k_mont[:, :nt].contiguous(), tuple(t[..., :nt].contiguous()
+                                                for t in pts)
+    msm_t = lambda: a.msm_g1.msm_mont(kt, pt, None, block)
+    msm_t()                                             # warm
+    _, plain_wall = timed(msm_t, device)
+    t0 = time.perf_counter()
+    with profiling.trace(trace_dir):
+        msm_t()
+        sync(device)
+    wall = (time.perf_counter() - t0) * 1e3
+    top, busy = trace_kernels(os.path.join(trace_dir, profiling.TRACE_FILE))
+    busy /= 1e3
+    names = " ".join(k for k, _, _ in top)
+    if device.type == "cuda" and not all(
+            k in names for k in ("bucket_scan_kernel", "pass_kernel")):
+        raise AssertionError(f"the traced G1 MSM shows no K2 or K3 kernel: "
+                             f"{names[:300]}")
+    log(f"# API trace: G1 msm_mont 2^{trace_log_n}: {wall:.1f} ms wall "
+        f"traced, {plain_wall:.1f} ms untraced; kernels ran {busy:.3f} ms: "
+        f"device busy {100 * busy / wall:.2f}% of the traced window, "
+        f"{100 * busy / plain_wall:.2f}% of the untraced call; "
+        f"{sum(c for _, _, c in top)} kernels of {len(top)} kinds; top 10 "
+        "by device time: " + "; ".join(
+            f"{kernel_name(k)} {t / 1e3:.3f} ms x{c}"
+            for k, t, c in top[:10]))
+    return launches, dict(ms=times, launches_per_call=per, trace=dict(
+        wall_ms=wall, untraced_ms=plain_wall, kernel_busy_ms=busy,
+        busy_share_traced=busy / wall, busy_share_untraced=busy / plain_wall,
+        top=[dict(name=kernel_name(k), ms=t / 1e3, count=c)
+             for k, t, c in top[:10]]))
+
+
+def phase_parallel(device, log_n, gfft_log_n, block, rng):
+    """The sharded layer (parallel/) in a world of 1 over NCCL (gloo on
+    the CPU), a file store in a temporary directory, destroyed at the end:
+    sharded_msm G1 at 2^log_n equal to msm_std; ShardedNTT at 2^log_n
+    equal to NTTDomain.ntt, its intt inverting it; ShardedPolyOps.mul of
+    two 2^(log_n - 1)-coefficient polynomials at a point, eval_at and
+    div_by_vanishing(n_van=16) against Horner; sharded_sum and
+    sharded_dot against sum_mod and dot_prod; ShardedGroupFFT G1 at
+    2^gfft_log_n equal to GroupFFT.  One card shows only that the code
+    path and the collectives run, not how they scale."""
+    import torch
+    import torch.distributed as dist
+    from zikkurat_algebra_tpu_torch import params as P
+    from zikkurat_algebra_tpu_torch.ops import vector as V
+    from zikkurat_algebra_tpu_torch.ops.curve import get_curves
+    from zikkurat_algebra_tpu_torch.ops.gfft import get_group_fft
+    from zikkurat_algebra_tpu_torch.ops.ntt import get_domain
+    from zikkurat_algebra_tpu_torch.parallel import mesh as M
+    from zikkurat_algebra_tpu_torch.parallel.gfft import ShardedGroupFFT
+    from zikkurat_algebra_tpu_torch.parallel.msm import sharded_msm
+    from zikkurat_algebra_tpu_torch.parallel.ntt import ShardedNTT
+    from zikkurat_algebra_tpu_torch.parallel.poly import ShardedPolyOps
+    from zikkurat_algebra_tpu_torch.parallel.vector import (sharded_dot,
+                                                            sharded_sum)
+
+    ck = get_curves(P.BLS12_381, device)
+    fr = ck.fr
+    n = 1 << log_n
+    with tempfile.TemporaryDirectory() as tmp:
+        M.init_multihost(f"file://{tmp}/store", 1, 0, device=device.type)
+        try:
+            mesh = M.make_mesh()
+            backend = dist.get_backend()
+            per, times = {}, {}
+            call = lambda name, fn: counted_call(per, times, device, name, fn)
+            _, _, pts = tiled_seeds(ck, "g1", n, device)
+            k = torch.from_numpy(rand_canonical(rng, fr.p, fr.W, n)).to(device)
+            sh = lambda t: M.shard_batch(mesh, t)
+            reset_counts()
+            got = call(f"sharded_msm 2^{log_n}", lambda: sharded_msm(
+                ck.msm("g1"), mesh, sh(k), tuple(sh(t) for t in pts), None,
+                block))
+            want = ck.msm("g1").msm_std(k, pts, None, block)
+            if affine_diff(ck.g1, tuple(t.unsqueeze(-1) for t in got),
+                           tuple(t.unsqueeze(-1) for t in want)):
+                raise AssertionError("sharded_msm differs from msm_std")
+
+            x = torch.from_numpy(rand_canonical(rng, fr.p, fr.W, n)).to(device)
+            sntt = ShardedNTT(fr, log_n, mesh)
+            for inverse in (False, True):             # built before timing
+                sntt.twiddles(inverse)
+            y = call(f"ShardedNTT.ntt 2^{log_n}", lambda: sntt.ntt(sh(x)))
+            back = call(f"ShardedNTT.intt 2^{log_n}", lambda: sntt.intt(y))
+            if not torch.equal(M.gather_batch(mesh, y),
+                               get_domain(fr, log_n).ntt(x)):
+                raise AssertionError("ShardedNTT.ntt differs from NTTDomain")
+            if not torch.equal(M.gather_batch(mesh, back), x):
+                raise AssertionError("ShardedNTT.intt(ntt(x)) != x")
+
+            po = ShardedPolyOps(fr, log_n, mesh)
+            half = torch.from_numpy(rand_canonical(rng, fr.p, fr.W, n)).to(
+                device)
+            half[:, n // 2:] = 0
+            hb = torch.roll(half, 1, 1)
+            hb[:, n // 2:] = 0
+            c = call(f"ShardedPolyOps.mul 2^{log_n - 1} x 2^{log_n - 1}",
+                     lambda: po.mul(sh(half), sh(hb)))
+            z, x0, eta = (int.from_bytes(rng.bytes(40), "little") % fr.p
+                          for _ in range(3))
+            y0 = call(f"ShardedPolyOps.eval_at 2^{log_n}",
+                      lambda: po.eval_at(fr.encode(x0), sh(x)))
+            (q, rem) = call(f"ShardedPolyOps.div_by_vanishing 2^{log_n}, "
+                            "n_van=16", lambda: po.div_by_vanishing(
+                                sh(x), 16, fr.encode(eta)))
+            s = call(f"sharded_sum 2^{log_n}", lambda: sharded_sum(
+                fr, mesh, sh(x)))
+            d = call(f"sharded_dot 2^{log_n}", lambda: sharded_dot(
+                fr, mesh, sh(x), sh(half)))
+            av, bv, cv, xv, qv = (fr.decode(M.gather_batch(mesh, t)) for t in
+                                  (sh(half), sh(hb), c, sh(x), q))
+            p = fr.p
+            if horner(cv, z, p) != horner(av, z, p) * horner(bv, z, p) % p:
+                raise AssertionError("ShardedPolyOps.mul: A(z) B(z) != C(z)")
+            if fr.decode(y0) != horner(xv, x0, p):
+                raise AssertionError("ShardedPolyOps.eval_at differs from "
+                                     "Horner")
+            if any(qv[-16:]) or (horner(qv, z, p) * (pow(z, 16, p) - eta)
+                                 + horner(fr.decode(rem), z, p)) % p != \
+                    horner(xv, z, p):
+                raise AssertionError("ShardedPolyOps.div_by_vanishing: "
+                                     "q(z)(z^16 - eta) + r(z) != P(z)")
+            if not (torch.equal(s, V.sum_mod(fr, x))
+                    and torch.equal(d, V.dot_prod(fr, x, half))):
+                raise AssertionError("sharded_sum or sharded_dot differs "
+                                     "from sum_mod or dot_prod")
+
+            ng = 1 << gfft_log_n
+            Pg = ck.g1.from_affine(tuple(t[..., :ng] for t in pts))
+            sg = ShardedGroupFFT(ck.g1, P.BLS12_381_FR, gfft_log_n, mesh)
+            F = call(f"ShardedGroupFFT.fft 2^{gfft_log_n}", lambda: sg.fft(
+                tuple(sh(t) for t in Pg)))
+            G = get_group_fft(ck.g1, P.BLS12_381_FR, gfft_log_n).fft(Pg)
+            if affine_diff(ck.g1, tuple(M.gather_batch(mesh, t) for t in F),
+                           G):
+                raise AssertionError("ShardedGroupFFT differs from GroupFFT")
+            launches = read_counts(device, "sharded", (
+                "mont_mul", "bucket_scan", "sort_key_val", "ntt_stage"), per)
+        finally:
+            dist.destroy_process_group()
+    log(f"# sharded ({backend}, a world of 1 on one card: the code path and "
+        "the collectives run; no scaling is shown): sharded_msm equals "
+        "msm_std, ShardedNTT equals NTTDomain and intt inverts it, "
+        "ShardedPolyOps mul / eval_at / div_by_vanishing agree with Horner, "
+        "sharded_sum / sharded_dot equal sum_mod / dot_prod, "
+        "ShardedGroupFFT equals GroupFFT")
+    for name, ms in times.items():
+        log(f"# sharded {name}: {ms:.1f} ms (host clock, first call); "
+            f"launches {json.dumps(per[name])}")
+    return launches, dict(ms=times, launches_per_call=per, backend=backend)
+
+
+
+def fold_scalars(k_np: np.ndarray, nseed: int, r: int):
+    """Scalars (Wr, n) of n points that tile `nseed` seeds -> the nseed
+    sums of the scalars on each seed, mod r: the MSM of the tiled points
+    equals the MSM of the seeds with these."""
+    from zikkurat_algebra_tpu_torch.ops.limbs import limbs_to_ints
+
+    cols = k_np.view(np.uint32).astype(np.uint64).reshape(
+        k_np.shape[0], k_np.shape[1] // nseed, nseed).sum(1)
+    return [v % r for v in limbs_to_ints(cols_to_limbs(cols))]
+
+
 def cols_to_limbs(cols: np.ndarray) -> np.ndarray:
     """(W, N) uint64 column sums -> (W + 2, N) int32 limbs of the values."""
     W, N = cols.shape
@@ -1131,7 +1502,9 @@ def tiled_seeds(ck, grp, n, device):
 def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
         block: int = 512, ntt_log_n: int = 20, gfft_log_n: int = 14,
         srs_log_n: int = 20, srs_g2_log_n: int = 12, gold_log_n: int = 20,
-        pairing_batch: int = 1024, kzg_log_n: int = 12):
+        pairing_batch: int = 1024, kzg_log_n: int = 12,
+        bigint_log_n: int = 20, api_g2_log_n: int = 16,
+        trace_log_n: int = 16, sharded_gfft_log_n: int = 10):
     import torch
     from zikkurat_algebra_tpu_torch import params as P
     from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
@@ -1198,6 +1571,15 @@ def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
         device, pairing_batch, rng)
     launches["kzg"], meas["mont_mul"]["kzg_path"] = phase_kzg(
         ck, device, kzg_log_n, rng)
+
+    # BigInt (no kernel), the per-curve API and the sharded layer
+    phase_bigint(device, bigint_log_n, rng)
+    with tempfile.TemporaryDirectory() as trace_dir:
+        launches["api"], meas["mont_mul"]["api_path"] = phase_api(
+            device, log_n, api_g2_log_n, ntt_log_n, trace_log_n, block, rng,
+            trace_dir)
+    launches["sharded"], meas["mont_mul"]["sharded_path"] = phase_parallel(
+        device, log_n, sharded_gfft_log_n, block, rng)
 
     rows = []
     for name, (src, rep) in KERNELS.items():

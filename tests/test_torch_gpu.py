@@ -491,3 +491,63 @@ def test_kzg_on_card_vs_cpu(cuda_device):
                     bool(kzg.verify_proof(s, com, proof, x0, y0)))
     assert out[cuda_device] == out["cpu"]
     assert out["cpu"][-1] and out["cpu"][1] == out["cpu"][2]
+
+
+@pytest.mark.gpu
+def test_bigint_768_on_card_vs_cpu(cuda_device):
+    """BigInt at 768 bits on 2^16 values: every operation on the card
+    equals the CPU's result limb for limb (plain torch ops on both)."""
+    from zikkurat_algebra_tpu_torch.ops.bigint import bigint
+
+    rng = np.random.default_rng(51)
+    n = 1 << 16
+    a, b = (torch.from_numpy(rng.integers(0, 1 << 32, (24, n), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+            for _ in range(2))
+    w = torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.int64))
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        B = bigint(768, dev)
+        x, y, v = a.to(B.device), b.to(B.device), w.to(B.device)
+        out[dev] = [B.add(x, y), B.sub(x, y), B.neg(x), B.mul(x, y),
+                    B.mul_ext(x, y), B.sqr_ext(x), B.scale_ext(v, x),
+                    B.inc(x), B.dec(x), B.shift_left(x, 77),
+                    B.shift_right(x, 77), B.geq(x, y)]
+    flat = lambda r: [t.cpu() for t in r] if isinstance(r, tuple) else [r.cpu()]
+    for got, want in zip(out[cuda_device], out["cpu"]):
+        assert all(torch.equal(g, w_) for g, w_ in zip(flat(got), flat(want)))
+
+
+@pytest.mark.gpu
+def test_curve_api_on_card_launches_kernels(cuda_device):
+    """bls12_381("cuda"): msm_g1 and msm_g2 of 2^6 committed seed points
+    launch K1, K3 and K2 or K4 and equal the oracle's MSM; ntt_domain(12)
+    launches K5 and equals the same API on the CPU."""
+    from zikkurat_algebra_tpu_torch import api
+
+    a, cpu = api.bls12_381(cuda_device), api.bls12_381("cpu")
+    rng = random.Random(52)
+    n = 1 << 6
+    ks = [rng.randrange(a.fr.p) for _ in range(n)]
+    vals = [rng.randrange(a.fr.p) for _ in range(1 << 12)]
+    counts = (kernel_field.mont_mul, kernel_sort.sort_key_val,
+              kernel_curve.bucket_scan, kernel_curve.bucket_scan2,
+              kernel_ntt.ntt_stage)
+    for fn in counts:
+        fn.launches = 0
+    k = a.fr.encode(ks)
+    got, want = [], []
+    for grp, msm, dec, og in (("g1", a.msm_g1, a.decode_g1, a.curves.oracle_g1),
+                              ("g2", a.msm_g2, a.decode_g2, a.curves.oracle_g2)):
+        seeds = load_jax_seed_points(SEEDS_G1.replace("_g1", f"_{grp}"), a.fp)
+        pts = tuple(t[..., :n].contiguous() for t in seeds)
+        r = msm.msm_mont(k, pts)
+        ops = a.g1 if grp == "g1" else a.g2
+        got.append(dec(ops.to_affine(tuple(t.unsqueeze(-1) for t in r))))
+        want.append([og.msm(ks, dec(pts))])
+    y = a.ntt_domain(12).ntt(a.fr.encode(vals))
+    torch.cuda.synchronize()
+    assert all(fn.launches > 0 for fn in counts), [fn.launches for fn in counts]
+    assert got == want
+    assert a.fr.decode(y) == cpu.fr.decode(cpu.ntt_domain(12).ntt(
+        cpu.fr.encode(vals)))

@@ -16,5 +16,10 @@ class DomainSizeError(ZikkuratError):
     field has no domain of that size."""
 
 
+class MeshError(ZikkuratError):
+    """Device-mesh shape unsupported by the sharded function, or this
+    process not in the mesh."""
+
+
 class UnsupportedError(ZikkuratError):
     """The curve family does not support the requested group."""

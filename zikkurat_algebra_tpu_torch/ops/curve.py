@@ -35,7 +35,7 @@ from ..oracle.groups import g1_group, g2_group
 from ..params import CurveParams
 from . import limbs as lb
 from .field import resolve_device
-from .tower import TowerKernels
+from .tower import get_tower
 
 Point = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]    # (X, Y, Z)
 AffBatch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (x, y, inf)
@@ -362,7 +362,7 @@ class CurveKernels:
 
     def __init__(self, curve: CurveParams, device="cuda"):
         self.curve = curve
-        self.tower = TowerKernels(curve, device)
+        self.tower = get_tower(curve, device)
         self.fp = self.tower.fp
         self.fr = self.tower.fr
         self.device = self.fp.device

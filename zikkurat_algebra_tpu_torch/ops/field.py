@@ -142,12 +142,17 @@ class Field:
         a = a.contiguous()
         return self._mont_mul(a, a, self)
 
+    def mul_many(self, a_stack, b_stack):
+        """Independent products stacked on the K axis of (W, K, *batch)
+        operands, in ONE launch (field.py:272)."""
+        return self.mul(a_stack, b_stack)
+
     def mul_list(self, pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
                  ) -> List[torch.Tensor]:
         """K independent products in ONE launch (field.py:277-287)."""
         if len(pairs) == 1:
             return [self.mul(pairs[0][0], pairs[0][1])]
-        return list(self._mont_mul(*self._stack(pairs), self).unbind(1))
+        return list(self.mul_many(*self._stack(pairs)).unbind(1))
 
     def scale_small(self, a, k: int):
         """k * a mod p for a small int k (one product by k R mod p)."""

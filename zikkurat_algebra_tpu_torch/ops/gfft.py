@@ -77,26 +77,27 @@ class GroupFFT:
     def _transform(self, P: Point, tables: List[torch.Tensor]) -> Point:
         ops = self.ops
         n = self.n
-        struct = P[0].shape[:ops.f.struct_ndim]
-        if P[0].shape != struct + (n,):
+        lead = P[0].shape[:-1]          # the coordinate's axes, then a batch
+        if P[0].shape[-1] != n:
             raise DomainSizeError(f"group FFT of size {n} on points of shape "
                                   f"{tuple(P[0].shape)}")
         P = tuple(c.index_select(-1, self._perm) for c in P)
         for s, digits in enumerate(tables, 1):
             half = 1 << (s - 1)
-            blocks = tuple(c.reshape(struct + (n >> s, 2, half)) for c in P)
+            blocks = tuple(c.reshape(lead + (n >> s, 2, half)) for c in P)
             U = tuple(c.select(-2, 0) for c in blocks)
             T = ops.scalar_mul_digits(digits.unsqueeze(1),
                                       tuple(c.select(-2, 1) for c in blocks))
             # u + t and u - t in one batched addition
             out = ops.add(ops.stack([U, U], -2),
                           ops.stack([T, ops.neg(T)], -2))
-            P = tuple(c.reshape(struct + (n,)) for c in out)
+            P = tuple(c.reshape(lead + (n,)) for c in out)
         return P
 
     def fft(self, P: Point) -> Point:
         """out[k] = sum_j [gen^(j k)] P_j for projective points (X, Y, Z)
-        with coordinates (W, n) or (W, 2, n)."""
+        with coordinates (W, *batch, n) or (W, 2, *batch, n), transformed
+        along the last axis."""
         return self._transform(P, self._fwd)
 
     def ifft(self, P: Point) -> Point:

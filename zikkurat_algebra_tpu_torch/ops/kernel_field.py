@@ -62,13 +62,21 @@ def _conv(A: torch.Tensor, B: torch.Tensor, ncols: int) -> torch.Tensor:
     return torch.cat([out, pad], 0)
 
 
-def _norm16(T: torch.Tensor) -> torch.Tensor:
-    """Nonnegative int64 columns < 2^40 -> 16-bit digits of the same value
-    mod 2^(16 * ncols): two partial-carry passes leave every carry 0 or 1,
-    then the carry-ins are resolved at once."""
+def _partial16(T: torch.Tensor) -> torch.Tensor:
+    """Nonnegative int64 columns < 2^40 of radix 2^16 -> columns below
+    2^16 + 2 of the same value mod 2^(16 * ncols), by two passes that move
+    each column's high part up one."""
     for _ in range(2):
         hi = T >> 16
         T = (T & M16) + torch.cat([torch.zeros_like(hi[:1]), hi[:-1]], 0)
+    return T
+
+
+def _norm16(T: torch.Tensor) -> torch.Tensor:
+    """Nonnegative int64 columns < 2^40, at most 60 of them -> 16-bit
+    digits of the same value mod 2^(16 * ncols): after `_partial16` every
+    carry is 0 or 1, and the carry-ins are resolved at once."""
+    T = _partial16(T)
     r = T & M16
     cin, _ = lb.carry_ins(T >> 16, r == M16)
     return (r + cin) & M16

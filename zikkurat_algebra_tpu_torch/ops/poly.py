@@ -203,20 +203,12 @@ class PolyOps:
         d, entry j holds the composite of F_j .. F_(j+d-1) applied to the
         rest, whose multiplier is eta^d for every entry it updates, so a
         step is B_j += eta^d B_(j+d), one product launch."""
-        f = self.f
         na = a.shape[-1]
         if na <= n:
             return (a.new_zeros(a.shape[:-1] + (0,)), self.pad_to(a, n))
         k = -(-na // n)
-        s = self.pad_to(a, k * n).reshape(a.shape[:-1] + (k, n))
-        e = eta.reshape((f.W,) + (1,) * (s.ndim - 1))
-        d = 1
-        while d < k:
-            t = f.mul(s[..., d:, :], e)
-            s = torch.cat([f.add(s[..., :k - d, :], t), s[..., k - d:, :]], -2)
-            d *= 2
-            if d < k:
-                e = f.sqr(e)
+        s = suffix_blocks(self.f, self.pad_to(a, k * n).reshape(
+            a.shape[:-1] + (k, n)), eta)
         quot = s[..., 1:, :].reshape(a.shape[:-1] + ((k - 1) * n,))
         return quot[..., :na - n], s[..., 0, :]
 
@@ -225,6 +217,22 @@ class PolyOps:
         """Quotient by x^n - eta and whether the division is exact."""
         q, r = self.div_by_vanishing(a, n, eta)
         return q, self.f.is_zero(r).all(-1)
+
+
+def suffix_blocks(f: Field, s: torch.Tensor, eta: torch.Tensor
+                  ) -> torch.Tensor:
+    """Blocks B_j (W, *, k, n) -> s_j = B_j + eta s_(j+1), s_(k-1) =
+    B_(k-1), by the log-depth suffix scan of `PolyOps.div_by_vanishing`."""
+    k = s.shape[-2]
+    e = eta.reshape((f.W,) + (1,) * (s.ndim - 1))
+    d = 1
+    while d < k:
+        t = f.mul(s[..., d:, :], e)
+        s = torch.cat([f.add(s[..., :k - d, :], t), s[..., k - d:, :]], -2)
+        d *= 2
+        if d < k:
+            e = f.sqr(e)
+    return s
 
 
 _POLY_CACHE: Dict[tuple, PolyOps] = {}

@@ -22,7 +22,7 @@ Fp12 element).  The products by xi and by v are additions only
 from __future__ import annotations
 
 import copy
-from typing import List, Sequence, Tuple, Union
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,7 +30,7 @@ import torch
 from ..oracle.groups import tower as oracle_tower
 from ..params import CurveParams
 from . import limbs as lb
-from .field import Field, int_to_bits
+from .field import Field, int_to_bits, resolve_device
 
 Fp2Value = Union[int, Tuple[int, int]]
 
@@ -443,3 +443,15 @@ class TowerKernels:
 
     def decode_fp12(self, a):
         return self._decode(a, (2, 3, 2))
+
+
+_TOWER_CACHE: Dict[Tuple[CurveParams, torch.device], TowerKernels] = {}
+
+
+def get_tower(curve: CurveParams, device="cuda") -> TowerKernels:
+    """The `TowerKernels` of `curve` on `device`, built once
+    (tower.py:434)."""
+    key = (curve, resolve_device(device))
+    if key not in _TOWER_CACHE:
+        _TOWER_CACHE[key] = TowerKernels(curve, key[1])
+    return _TOWER_CACHE[key]

@@ -10,7 +10,10 @@ the port's (W, 2, N) and back, and an Fp6 or Fp12 batch, JAX
 (L, 3, 2, N) or (L, 2, 3, 2, N), the port's (W, 3, 2, N) or
 (W, 2, 3, 2, N).  They work on numpy arrays, so both packages can read
 what they return.  A KZG setup of the JAX package becomes the port's by
-`kzg_setup_from_jax`.
+`kzg_setup_from_jax`.  A JAX `BigInt` holds exact 16-bit limbs in uint32
+planes (L = bits / 16, *batch); `from_jax_bigint` and `to_jax_bigint`
+pair them into the port's 32-bit limbs and back.  `shard_numpy` gives a
+rank its chunk of a global numpy array without moving the rest.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from ..ops import limbs as lb
 from ..ops.curve import get_curves
+from ..parallel.mesh import Mesh, shard_batch
 from ..params import CURVES
 from ..protocols.kzg import KZGSetup
 
@@ -143,3 +147,29 @@ def load_jax_seed_points(npz_path, fp):
     return (torch.from_numpy(from_jax_limbs15(x, fp)).to(dev),
             torch.from_numpy(from_jax_limbs15(y, fp)).to(dev),
             torch.from_numpy(inf.astype(bool)).to(dev))
+
+
+def from_jax_bigint(planes) -> np.ndarray:
+    """JAX BigInt planes (L, *batch), 16-bit limbs in uint32, L even ->
+    the port's (L / 2, *batch) int32 limbs of the same integers."""
+    d = np.asarray(planes).astype(np.uint32)
+    d = d.reshape((d.shape[0] // 2, 2) + d.shape[1:])
+    return (d[:, 0] | (d[:, 1] << np.uint32(16))).view(np.int32)
+
+
+def to_jax_bigint(limbs) -> np.ndarray:
+    """The port's (W, *batch) limbs -> JAX BigInt planes (2W, *batch) of
+    16-bit limbs in uint32."""
+    if isinstance(limbs, torch.Tensor):
+        limbs = limbs.detach().cpu().numpy()
+    u = np.asarray(limbs).view(np.uint32)
+    d = np.stack([u & np.uint32(0xFFFF), u >> np.uint32(16)], 1)
+    return d.reshape((2 * u.shape[0],) + u.shape[1:])
+
+
+def shard_numpy(mesh: Mesh, arr, batch_axis: int = -1) -> torch.Tensor:
+    """This rank's chunk of a global numpy array along batch_axis, as a
+    tensor on the rank's device (`parallel.mesh.shard_batch`; only the
+    chunk is copied)."""
+    return shard_batch(mesh, torch.from_numpy(np.ascontiguousarray(arr)),
+                       batch_axis)
