@@ -18,7 +18,13 @@ The script
 2. holds kernel K1 (Montgomery product) against its plain torch version
    on 2^20 random elements of BLS12-381 Fp, BLS12-381 Fr and BN128 Fp,
    and at the widths W = 1, 2, 3, 4, 8 of M31, goldilocks, 2^64 + 13,
-   M127 and secp256k1's base field: exact limb equality; times both;
+   M127 and secp256k1's base field: exact limb equality; times both, the
+   kernel by CUDA events and by device time (`graph_ms`: a CUDA graph
+   of calls back to back, rotating over copies of the data larger in
+   all than the L2; K2, K4 and K5 the same, K3 by the kernel durations
+   of a torch.profiler trace, as its wrapper synchronises with the
+   host; an event time above 1.5x the device time is marked
+   host-bound);
 3. G2 path, on the 1024 committed seeds of
    bench_data/seeds_BLS12_381_g2.npz (tiled) and random scalars:
    a. K3 (grouping sort) against its plain version on the path's own
@@ -56,9 +62,13 @@ The script
       square, a non-residue reports no root;
    each call's K1 launches (> 0) and host-clock ms of a second call;
 6. NTT path, BLS12-381 Fr at 2^20:
-   a. K5 (NTT butterfly stage): one full radix-2 NTT of random inputs
-      through the kernel and through its plain version, every stage
-      equal limb for limb; times per stage and per NTT;
+   a. K5 (NTT stages in shared memory): one full radix-2 NTT of random
+      inputs through the kernel and through `ntt_stages_plain`, pass by
+      pass (`pass_plan`: 3 launches), equal limb for limb after each;
+      then in turns one stage per launch, the passes, the passes, one
+      stage per launch: the transform's K5 time by CUDA events and by
+      device time, and by events with the bit-reversal gather; the bound
+      of the whole transform;
    b. `NTTDomain.ntt`, `intt` and four-step `ntt`: table build timed
       apart, intt(ntt(x)) == x, four-step equal to radix-2, three outputs
       against sum_j x_j g^(j k) in Python ints, launches per transform
@@ -68,8 +78,8 @@ The script
       opening's steps) against Python Horner evaluations;
    d. group FFT over G1 at 2^14 (the seeds tiled): `fft` at two outputs
       against `msm_std` with scalars w^(j k), ifft(fft(P)) == P;
-   e. K5 at W = 2: a full goldilocks NTT of 2^20 through the kernel and
-      its plain version, stage by stage, then `NTTDomain.ntt` equal to it,
+   e. K5 at W = 2: the same for a goldilocks NTT of 2^20 (2 passes),
+      then `NTTDomain.ntt` equal to the kernel's passes,
       intt(ntt(x)) == x and three outputs against the sums;
 7. pairing path, BLS12-381 (`PairingKernels`), on random points from a
    seeded torch.Generator: `pairing` on 1024 pairs (its first two values
@@ -123,6 +133,7 @@ SEEDS = {grp: os.path.join(ROOT, "bench_data", f"seeds_BLS12_381_{grp}.npz")
          for grp in ("g1", "g2")}
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 IMAD_PER_CLOCK_PER_SM = 64         # compute capability 9.0, 32-bit multiply-add
+COLD_BYTES = 1 << 28               # data `graph_ms` rotates over (L2 50 MB)
 KERNELS = {                        # name -> (build source, TPU kernel replaced)
     "mont_mul": ("mont_mul", "zikkurat_algebra_tpu/ops/pallas_field.py:94"),
     "ntt_stage": ("ntt_stage",
@@ -183,6 +194,90 @@ def time_ms(fn, reps: int, device) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t) * 1e3 / reps
+
+
+def cold_copies(nbytes: int) -> int:
+    """How many copies of a call's data (nbytes moved per call) `graph_ms`
+    rotates over: at least COLD_BYTES in all, so that between two uses
+    of a copy the other calls move more than the L2 holds."""
+    return max(1, -(-COLD_BYTES // nbytes))
+
+
+def graph_ms(fns, reps: int, device) -> float | None:
+    """Device time of one call: a CUDA graph of at least reps calls back
+    to back, call i running fns[i % len(fns)] (each on its own copy of the
+    data, see `cold_copies`, so every call reads its inputs from device
+    memory) and keeping what it returns (so every call writes to memory
+    of its own), replayed three times and timed by CUDA events, over the
+    calls.  A replay issues the kernels back to back, so no host time
+    lies between them.  For calls that never synchronise with the host
+    (every kernel but K3, see `profiler_ms`).  None on the CPU."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    for fn in fns:                           # builds, allocates, warms up
+        fn()
+    torch.cuda.synchronize()
+    calls = len(fns) * -(-reps // len(fns))
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        kept = [fns[i % len(fns)]() for i in range(calls)]
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del kept
+    return start.elapsed_time(end) / (3 * calls)
+
+
+def profiler_ms(fn, reps: int, device, names, per_call: int) -> float | None:
+    """Device time of one fn() call for K3, whose wrapper reads the keys'
+    range on the host and so cannot be captured in a CUDA graph: the
+    durations of the CUDA kernels whose names contain one of `names`,
+    summed over the last per_call * reps such kernels by start time in a
+    torch.profiler trace of reps calls that follow reps // 2 more inside
+    the same window, over reps.  The calls ahead of the measured ones are
+    there because a window loses some of its first kernel records (11 to
+    14 in a long process on the H100 host); a window that recorded fewer
+    than per_call * reps is tried again, up to three times, then None.
+    None on the CPU."""
+    import torch
+    from zikkurat_algebra_tpu_torch.utils import profiling
+
+    if device.type != "cuda":
+        return None
+    need = per_call * reps
+    for _ in range(3):
+        with tempfile.TemporaryDirectory() as d:
+            with profiling.trace(d):
+                for _ in range(reps + reps // 2):
+                    fn()
+                torch.cuda.synchronize()
+            ks = [(ts, dur) for name, ts, dur in kernel_events(os.path.join(
+                d, profiling.TRACE_FILE)) if any(nm in name for nm in names)]
+        if len(ks) >= need:
+            return sum(dur for _, dur in sorted(ks)[-need:]) / reps / 1e3
+        log(f"# profiler: {len(ks)} kernels named {names} in a window of "
+            f"{reps + reps // 2} calls, want at least {need}; once more")
+    log(f"# profiler: device time of {names} not measured")
+    return None
+
+
+def host_bound(ms: float, dev_ms: float | None) -> bool:
+    """True where the event time exceeds the device time by more than
+    1.5x: the events then timed the wrapper's host work, not the
+    kernel."""
+    return dev_ms is not None and ms > 1.5 * dev_ms
+
+
+def host_note(ms: float, dev_ms: float | None) -> str:
+    return ", host-bound in the events" if host_bound(ms, dev_ms) else ""
 
 
 def rand_canonical(rng, p: int, W: int, n: int) -> np.ndarray:
@@ -309,19 +404,26 @@ def phase_k1(device, n, int_rate, rng):
             raise AssertionError(f"K1 differs from its plain version on "
                                  f"{prm.name}: max |limb diff| {err}")
         ms = time_ms(lambda: kernel_field.mont_mul(a, b, f), 20, device)
+        nbytes = 3 * 4 * f.W * n
+        dev_ms = graph_ms([lambda a=a.clone(), b=b.clone():
+                           kernel_field.mont_mul(a, b, f)
+                           for _ in range(cold_copies(nbytes))], 20, device)
         plain_ms = time_ms(lambda: kernel_field.mont_mul_plain(a, b, f), 2,
                            device)
-        nbytes = 3 * 4 * f.W * n
         nops = n * (4 * f.W * f.W + f.W)
         b_ms, b_by = bound(nbytes, nops, int_rate)
+        hb = host_bound(ms, dev_ms)
         log(f"# K1 mont_mul {prm.name} W={f.W} n={n}: equal to plain; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}: {nbytes} B, {nops} IMAD)")
+            f"{ms:.4f} ms (events), {dev_ms} ms (device)"
+            f"{host_note(ms, dev_ms)}; plain {plain_ms:.2f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {nops} IMAD)")
         by_width.append(dict(W=f.W, field=prm.name, n=n, ms=ms,
+                             device_ms=dev_ms, event_host_bound=hb,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              max_abs_err=err))
         if prm is P.BLS12_381_FP:
-            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            row = dict(ms=ms, device_ms=dev_ms, event_host_bound=hb,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        max_abs_err=err, shape=f"({f.W}, {n}) {prm.name}")
     row["by_width"] = by_width
     return row
@@ -386,6 +488,10 @@ def phase_k3(msm, k_limbs, device, block, sms):
     occ = (occupancy_row(*kernel_sort.occupancy(wc, n), sms)
            if device.type == "cuda" else {})
     ms = time_ms(lambda: kernel_sort.sort_key_val(keys, pay, bits), 10, device)
+    # per call: the upsweep, the scan and one pass per 8 key bits
+    dev_ms = profiler_ms(lambda: kernel_sort.sort_key_val(keys, pay, bits),
+                         10, device, ("upsweep_kernel", "scan_kernel",
+                                      "pass_kernel"), 2 + -(-bits // 8))
     plain_ms = time_ms(lambda: kernel_sort.sort_key_val_plain(keys, pay), 10,
                        device)
 
@@ -399,11 +505,16 @@ def phase_k3(msm, k_limbs, device, block, sms):
     b_ms, b_by = bound(nbytes, 0, 1.0)
     passes = -(-bits // 8)
     log(f"# K3 sort_key_val {wc} rows x {n}, key_bits={bits} ({passes} "
-        f"passes): equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"passes): equal to plain; kernel {ms:.4f} ms (events), {dev_ms} ms "
+        f"(device, profiler: upsweep, scan, passes){host_note(ms, dev_ms)}; "
+        f"plain "
+        f"{plain_ms:.4f} "
         f"ms, torch.sort + gather {library_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}: {nbytes} B); pass kernel {json.dumps(occ)}")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms, max_abs_err=err,
+    return dict(ms=ms, device_ms=dev_ms,
+                event_host_bound=host_bound(ms, dev_ms), plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                max_abs_err=err,
                 shape=f"{wc} rows x {n}, key_bits {bits}", **occ)
 
 
@@ -472,6 +583,9 @@ def phase_scan(ck, grp, k_limbs, pts, int_rate, device, m, sms,
                  else kernel_curve.bucket_scan2_occupancy)
         occ = occupancy_row(*query(ck.fp.W, nwin, n, m), sms)
     ms = time_ms(lambda: kernel_curve.bucket_scan(ops, *args), 3, device)
+    # inputs of 300-450 MB: one copy already overflows the L2
+    dev_ms = graph_ms([lambda: kernel_curve.bucket_scan(ops, *args)], 3,
+                      device)
     ncomp = 1 if grp == "g1" else 2
     nbytes, nops, madds = scan_work(ck.fp, ncomp, gpts, sd, idx, m, nbuckets)
     b_ms, b_by = bound(nbytes, nops, int_rate)
@@ -479,10 +593,13 @@ def phase_scan(ck, grp, k_limbs, pts, int_rate, device, m, sms,
              f"windows {rows} of 0..{nwin - 1}")
     log(f"# {k} bucket_scan {grp} c={c} windows={nwin} n={n} block={m}: "
         f"buckets and trailers equal to plain {how} on {scope}; kernel "
-        f"{ms:.3f} ms (all windows), plain {plain_ms:.1f} ms ({scope}), "
+        f"{ms:.3f} ms (all windows; events), {dev_ms} ms (device)"
+        f"{host_note(ms, dev_ms)}, plain {plain_ms:.1f} ms ({scope}), "
         f"bound {b_ms:.3f} ms ({b_by}: {madds} madds, {nops} IMAD, {nbytes} "
         f"B); {json.dumps(occ)}")
-    return dict(ms=ms, plain_ms=plain_ms, plain_scope=scope, bound_ms=b_ms,
+    return dict(ms=ms, device_ms=dev_ms,
+                event_host_bound=host_bound(ms, dev_ms), plain_ms=plain_ms,
+                plain_scope=scope, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, max_abs_err=err,
                 compared=how, shape=f"{nwin} windows x {n} points, block {m}",
                 **occ)
@@ -493,7 +610,7 @@ def counters():
                                                 kernel_ntt, kernel_sort)
 
     return {"mont_mul": kernel_field.mont_mul,
-            "ntt_stage": kernel_ntt.ntt_stage,
+            "ntt_stage": kernel_ntt.ntt_stages,
             "bucket_scan": kernel_curve.bucket_scan,
             "bucket_scan2": kernel_curve.bucket_scan2,
             "sort_key_val": kernel_sort.sort_key_val}
@@ -597,9 +714,13 @@ def horner(coeffs, z: int, p: int) -> int:
 
 def phase_k5(device, log_n, int_rate, rng, params=None):
     """K5 over one full radix-2 NTT of 2^log_n random elements of `params`
-    (default BLS12-381 Fr) against its plain version, stage by stage;
-    times per stage and per NTT.  Returns the row and the kernel's
-    output of the last stage."""
+    (default BLS12-381 Fr): the passes of `pass_plan` through the kernel
+    and through `ntt_stages_plain`, equal after every pass; then, in turns
+    (one stage per launch, the passes, the passes, one stage per launch),
+    the transform's K5 time by CUDA events around 20 calls and by
+    `graph_ms` (device time), and by events with the bit-reversal gather
+    before it; the gather's own device time.  Returns the row and
+    the kernel's output."""
     import torch
     from zikkurat_algebra_tpu_torch import params as P
     from zikkurat_algebra_tpu_torch.ops import kernel_ntt
@@ -609,58 +730,104 @@ def phase_k5(device, log_n, int_rate, rng, params=None):
     f = Field(params or P.BLS12_381_FR, device)
     n = 1 << log_n
     dom = NTTDomain(f, log_n)
-    tables = dom.tables()
+    tables, perm = dom.tables(), dom.perm()
+    plan = kernel_ntt.pass_plan(log_n, 0, kernel_ntt.tile_log(f.W))
     x = torch.from_numpy(rand_canonical(rng, f.p, f.W, n)).to(device)
-    y0 = x.index_select(1, dom.perm()).reshape(f.W, 1, n, 1).contiguous()
+    y0 = x.index_select(1, perm).reshape(f.W, 1, n, 1).contiguous()
     yk, yp = y0.clone(), y0.clone()
     err = 0
-    for s, tw in enumerate(tables, 1):
-        kernel_ntt.ntt_stage(yk, tw, s, f)
-        kernel_ntt.ntt_stage_plain(yp, tw, s, f)
+    for s0, k in plan:
+        kernel_ntt.ntt_stages(yk, tables, s0, k, f)
+        kernel_ntt.ntt_stages_plain(yp, tables, s0, k, f)
         err = max(err, max_limb_diff(yk, yp))
         if err:
-            raise AssertionError(f"K5 differs from its plain version at "
-                                 f"stage {s}: max |limb diff| {err}")
+            raise AssertionError(f"K5 differs from ntt_stages_plain after "
+                                 f"stages {s0 + 1}..{s0 + k}: max |limb "
+                                 f"diff| {err}")
+    # the transform's K5 work: x read and written once, every stage table
+    # read once; one Montgomery product (4 W^2 + W multiply-adds) per pair
+    # per stage whose twiddle is not one (v * one = v; in this run's
+    # tables entry 0 of every stage, so all of stage 1).  The gather reads
+    # x and the int64 permutation, writes y.
+    one = f.one_limbs.view(f.W, 1)
+    prods = sum(int((t != one).any(0).sum()) * (n // (2 * t.shape[1]))
+                for t in tables)
+    tab_bytes = 4 * f.W * (n - 1)
+    nbytes = 2 * 4 * f.W * n + tab_bytes
+    gather_bytes = 2 * 4 * f.W * n + 8 * n
+    nops = prods * (4 * f.W * f.W + f.W)
+    b_ms, b_by = bound(nbytes, nops, int_rate)
+    bg_ms, bg_by = bound(nbytes + gather_bytes, nops, int_rate)
+
     buf = y0.clone()
-    stage_ms = [time_ms(lambda: kernel_ntt.ntt_stage(buf, tw, s, f), 20,
-                        device) for s, tw in enumerate(tables, 1)]
+    bufs = [y0.clone() for _ in range(cold_copies(nbytes))]
+    schedules = {"one stage per launch": [(s, 1) for s in range(log_n)],
+                 "passes": plan}
+
+    def run(sched, y, gather=False):
+        def go():
+            z = x.index_select(1, perm).view(f.W, 1, n, 1) if gather else y
+            for s0, k in sched:
+                kernel_ntt.ntt_stages(z, tables, s0, k, f)
+        return go
+
+    turns = []
+    for name in ("one stage per launch", "passes", "passes",
+                 "one stage per launch"):
+        sched = schedules[name]
+        turns.append(dict(
+            schedule=name, launches=len(sched),
+            ms=time_ms(run(sched, buf), 20, device),
+            device_ms=graph_ms([run(sched, y) for y in bufs], 20, device),
+            with_gather_ms=time_ms(run(sched, buf, True), 20, device)))
+    gather_ms = graph_ms([lambda xc=x.clone(): xc.index_select(1, perm)
+                          for _ in range(cold_copies(gather_bytes))], 20,
+                         device)
+    for t in turns:
+        log(f"# K5 A/B {f.params.name} 2^{log_n} {t['schedule']} "
+            f"({t['launches']} launches): {t['ms']:.4f} ms (events), "
+            f"{t['device_ms']} ms (device); with the bit-reversal gather "
+            f"{t['with_gather_ms']:.4f} ms (events)")
+    log(f"# K5 bit-reversal gather (index_select) {f.params.name} 2^{log_n}: "
+        f"{gather_ms} ms (device)")
 
     def plain_ntt():
-        for s, tw in enumerate(tables, 1):
-            kernel_ntt.ntt_stage_plain(buf, tw, s, f)
+        kernel_ntt.ntt_stages_plain(buf, tables, 0, log_n, f)
 
-    plain_ms = time_ms(plain_ntt, 1, device) / log_n
-    ms = sum(stage_ms) / log_n
-    # per stage: x read and written once, the table read once; one
-    # Montgomery product (4 W^2 + W multiply-adds) per pair
-    nbytes = [2 * 4 * f.W * n + 4 * f.W * (1 << (s - 1))
-              for s in range(1, log_n + 1)]
-    nops = (n // 2) * (4 * f.W * f.W + f.W)
-    bounds = [bound(b, nops, int_rate) for b in nbytes]
-    b_ms = sum(b for b, _ in bounds) / log_n
-    b_by = bounds[-1][1]
-    t_bytes = sum(nbytes) / log_n / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / int_rate * 1e3
-    log(f"# K5 ntt_stage {f.params.name} n=2^{log_n}: all {log_n} stages equal "
-        f"to plain; kernel {ms:.4f} ms per stage, {sum(stage_ms):.3f} ms "
-        f"per NTT; plain {plain_ms:.3f} ms per stage; bound {b_ms:.4f} ms "
-        f"per stage, {b_ms * log_n:.3f} ms per NTT ({b_by}: bytes "
-        f"{t_bytes:.4f} ms, operations {t_ops:.4f} ms per stage; "
-        f"{nops} IMAD per stage)")
-    log("# K5 ms by stage: " + ", ".join(f"{v:.4f}" for v in stage_ms))
-    return dict(ms=ms, ms_per_ntt=sum(stage_ms), stage_ms=stage_ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                bound_ms_per_ntt=b_ms * log_n, bytes_ms=t_bytes,
-                operations_ms=t_ops, library_ms=None, max_abs_err=err,
+    plain_ms = time_ms(plain_ntt, 1, device)
+    ours = [t for t in turns if t["schedule"] == "passes"]
+    ms = min(t["ms"] for t in ours)
+    dev = [t["device_ms"] for t in ours]
+    dev_ms = None if None in dev else min(dev)
+    occ = {}
+    if device.type == "cuda":
+        per_sm, smem = kernel_ntt.occupancy(f.W)
+        occ = dict(blocks_per_sm=per_sm, smem_bytes_per_cta=smem)
+    log(f"# K5 ntt_stages {f.params.name} n=2^{log_n}: passes {plan} equal "
+        f"to ntt_stages_plain after each; {len(plan)} launches per NTT "
+        f"(one per pass, {log_n} one stage per launch): {ms:.4f} ms per NTT "
+        f"(events), {dev_ms} ms (device){host_note(ms, dev_ms)}; plain "
+        f"{plain_ms:.3f} ms; bound {b_ms:.4f} ms per NTT ({b_by}: {nbytes} B, "
+        f"{prods} products by a twiddle other than one, {nops} IMAD), with "
+        f"the gather {bg_ms:.4f} ms ({bg_by}); "
+        f"{json.dumps(occ)}")
+    return dict(ms=ms, device_ms=dev_ms,
+                event_host_bound=host_bound(ms, dev_ms), plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by,
+                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                operations_ms=nops / int_rate * 1e3, products=prods,
+                bound_with_gather_ms=bg_ms, gather_device_ms=gather_ms,
+                library_ms=None, max_abs_err=err,
+                passes=plan, launches_per_transform=len(plan), ab=turns,
                 shape=f"({f.W}, 1, 2^{log_n}, 1) {f.params.name}, one "
-                      "stage"), (x, yk)
+                      "transform", **occ), (x, yk)
 
 
 def phase_goldilocks(device, log_n, int_rate, rng):
     """K5 at W = 2: one full NTT of 2^log_n goldilocks elements through
-    the kernel and its plain version, stage by stage (`phase_k5`), then
+    the kernel and its plain version, pass by pass (`phase_k5`), then
     `NTTDomain.ntt` / `intt` on the card: ntt equal to the kernel's
-    stage-by-stage result, intt(ntt(x)) == x, three outputs equal to
+    pass-by-pass result, intt(ntt(x)) == x, three outputs equal to
     sum_j x_j g^(j k)."""
     import torch
     from zikkurat_algebra_tpu_torch import params as P
@@ -678,7 +845,7 @@ def phase_goldilocks(device, log_n, int_rate, rng):
                                                      "mont_mul"))
     if not torch.equal(y, yk.reshape(y.shape)):
         raise AssertionError("goldilocks ntt differs from the kernel's "
-                             "stage-by-stage NTT")
+                             "pass-by-pass NTT")
     if not torch.equal(back, x):
         raise AssertionError("goldilocks intt(ntt(x)) != x")
     n = 1 << log_n
@@ -692,7 +859,7 @@ def phase_goldilocks(device, log_n, int_rate, rng):
         if tot % f.p != g:
             raise AssertionError(f"goldilocks NTT output {k} differs from "
                                  "the sum")
-    log(f"# goldilocks NTT 2^{log_n}: ntt equals the stage-by-stage K5 "
+    log(f"# goldilocks NTT 2^{log_n}: ntt equals the pass-by-pass K5 "
         f"NTT, intt(ntt(x)) == x, outputs 0, 1, {k3} equal the sums; ntt "
         f"{ntt_ms:.3f} ms, intt {intt_ms:.3f} ms (first calls, host clock)")
     row.update(ntt_ms=ntt_ms, intt_ms=intt_ms)
@@ -1212,19 +1379,25 @@ def kernel_name(name: str) -> str:
     return name[:100]
 
 
+def kernel_events(trace_file):
+    """The device kernels of a Chrome trace as (name, start us, us)."""
+    with open(trace_file) as fh:
+        events = json.load(fh)["traceEvents"]
+    return [(e["name"], float(e["ts"]), float(e["dur"])) for e in events
+            if e.get("cat") == "kernel" and "dur" in e]
+
+
 def trace_kernels(trace_file):
     """From a Chrome trace: the device kernels by summed time, as (name,
     us, count), most first, and the microseconds in which at least one
     kernel ran."""
-    with open(trace_file) as fh:
-        events = json.load(fh)["traceEvents"]
-    ks = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    ks = kernel_events(trace_file)
     by = {}
-    for e in ks:
-        t, c = by.get(e["name"], (0.0, 0))
-        by[e["name"]] = (t + float(e["dur"]), c + 1)
+    for name, _, dur in ks:
+        t, c = by.get(name, (0.0, 0))
+        by[name] = (t + dur, c + 1)
     busy, end = 0.0, None
-    for s, d in sorted((float(e["ts"]), float(e["dur"])) for e in ks):
+    for s, d in sorted((ts, dur) for _, ts, dur in ks):
         if end is None or s > end:
             busy += d
             end = s + d

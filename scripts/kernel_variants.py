@@ -1,9 +1,9 @@
 """Time variants of kernels K2 (G1 bucket scan), K3 (grouping sort) and
 K4 (G2 bucket scan) on one NVIDIA card.
 
-    python3 scripts/kernel_variants.py [K2] [K3] [K4]
+    python3 scripts/kernel_variants.py [K1] [K2] [K3] [K4] [K5]
 
-(all three when none is named).  A variant is the kernel's source in this
+(all five when none is named).  A variant is the kernel's source in this
 checkout with a few text edits: a register cap, the number of sub-lanes,
 a Montgomery product written with PTX carry chains, the keys per thread;
 for K4 also the Fp2 product inlined, with its three Karatsuba products
@@ -19,8 +19,16 @@ scalars, block 512) as chip_smoke.py gives them to the kernel: the G1
 path's for K2 and K3, the G2 path's for K4.  Each variant is checked
 against the committed kernel (K2's and K4's buckets and trailers as
 points after `to_affine`, K3 exactly) and timed with CUDA events; the
-committed kernel runs first and last.  The last line is a JSON object
-with every number, the line before it the card's name and power limit.
+committed kernel runs first and last.  K1 (Montgomery
+product, 2^20 elements at each width it takes; a variant with four
+elements and 16-byte loads per thread at W <= 4) and K5 (a 2^20 radix-2
+NTT of BLS12-381 Fr and of goldilocks in the passes of `pass_plan` for the
+variant's tile; variants of the tile's shared memory, the threads per CTA
+and the register cap) are checked against the committed kernel limb for
+limb and timed by CUDA events and by device time (`chip_smoke.graph_ms`
+on one copy of the data: a CUDA graph of 20 calls back to back).
+The last line is a JSON object with every number, the line before it the
+card's name and power limit.
 It needs a CUDA card and nvcc.
 """
 
@@ -288,8 +296,115 @@ K3_VARIANTS = {
 }
 
 
+# K5: the threads of a CTA and the CTAs the register cap leaves room
+# for, per width, and the tile, a launch argument (K5_TILES: log2 of its
+# elements, by W, where a variant changes it).  The pass plan follows the
+# tile.
+C8 = "static constexpr int kThreads = 256, kMinCtas = 3;"
+C2 = "static constexpr int kThreads = 1024, kMinCtas = 1;"
+R8 = "static constexpr int kRadixLog = 1;   // stages a thread runs per round"
+R2 = "static constexpr int kRadixLog = 3;\n};"
+
+
+def cfg(line, threads, ctas):
+    return [(line, f"static constexpr int kThreads = {threads}, kMinCtas = "
+                   f"{ctas};")]
+
+
+# Variants named "ablation: ..." compute something else on purpose: they
+# are timed, not checked, to split the kernel's time into its parts.
+K5_VARIANTS = {
+    "W=8: 2 stages per round": [(R8, "static constexpr int kRadixLog = 2;")],
+    "W=8: 2 stages per round, 2 CTAs": [
+        (R8, "static constexpr int kRadixLog = 2;")] + cfg(C8, 256, 2),
+    "W=8: 2 stages per round, 128 threads, 4 CTAs": [
+        (R8, "static constexpr int kRadixLog = 2;")] + cfg(C8, 128, 4),
+    "W=8: 32 KB tiles, 256 threads, 4 CTAs": cfg(C8, 256, 4),
+    "W=8: 64 KB tiles, 256 threads, 3 CTAs": [],
+    "W=2: 1 stage per round": [(R2, "static constexpr int kRadixLog = 1;\n};")],
+    "W=2: 2 stages per round": [(R2, "static constexpr int kRadixLog = 2;\n};")],
+    "W=2: 4 stages per round": [(R2, "static constexpr int kRadixLog = 4;\n};")],
+    "W=2: 64 KB tiles, 512 threads, 1 CTA": cfg(C2, 512, 1),
+    "W=2: 32 KB tiles, 512 threads, 2 CTAs": cfg(C2, 512, 2),
+    "W=2: 16 KB tiles, 256 threads, 4 CTAs": cfg(C2, 256, 4),
+    "ablation: no products": [
+        ("  if (!unit) zk::mont_mul<W>(v, v, w, p, n0);",
+         "  if (!unit) v[0] ^= w[0];")],
+    "ablation: loads and stores only": [
+        ("  rounds<W, Cfg<W>::kRadixLog>(sm, tile, tabs, p, n0, unit1, 0, k,",
+         "  rounds<W, Cfg<W>::kRadixLog>(sm, tile, tabs, p, n0, unit1, k, k,")],
+}
+K5_TILES = {"W=8: 64 KB tiles, 256 threads, 3 CTAs": {8: 11},
+            "W=2: 32 KB tiles, 512 threads, 2 CTAs": {2: 12},
+            "W=2: 16 KB tiles, 256 threads, 4 CTAs": {2: 11}}
+# K1 at W <= 4: four consecutive elements per thread, one 16-byte load or
+# store per limb plane, a scalar tail for n mod 4 (W = 1; wider planes
+# take the vector path only when n mod 4 = 0, so that every plane is
+# 16-byte aligned).
+K1_VEC_KERNEL = r"""
+template <int W>
+__global__ void __launch_bounds__(256)
+mont_mul4_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                 int32_t* __restrict__ out, const int32_t* __restrict__ pp,
+                 uint32_t n0, long long n) {
+  const long long q = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  uint32_t p[W], x[W], y[W], r[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) p[i] = static_cast<uint32_t>(__ldg(pp + i));
+  if (q < (n >> 2)) {
+    int4 va[W], vb[W], vo[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      va[i] = __ldg(reinterpret_cast<const int4*>(a + i * n) + q);
+      vb[i] = __ldg(reinterpret_cast<const int4*>(b + i * n) + q);
+    }
+#define ZK_LANE(c)                                                       \
+  for (int i = 0; i < W; ++i) {                                          \
+    x[i] = static_cast<uint32_t>(va[i].c);                               \
+    y[i] = static_cast<uint32_t>(vb[i].c);                               \
+  }                                                                      \
+  zk::mont_mul<W>(r, x, y, p, n0);                                       \
+  for (int i = 0; i < W; ++i) vo[i].c = static_cast<int32_t>(r[i]);
+    ZK_LANE(x) ZK_LANE(y) ZK_LANE(z) ZK_LANE(w)
+#undef ZK_LANE
+#pragma unroll
+    for (int i = 0; i < W; ++i) reinterpret_cast<int4*>(out + i * n)[q] = vo[i];
+  }
+  const long long e = ((n >> 2) << 2) + q;   // the tail, n mod 4 elements
+  if (q < (n & 3)) {
+    zk::load_limbs<W>(x, a, e, n);
+    zk::load_limbs<W>(y, b, e, n);
+    zk::mont_mul<W>(r, x, y, p, n0);
+    zk::store_limbs<W>(out, r, e, n);
+  }
+}
+
+template <int W>
+cudaError_t launch(const int32_t* a, const int32_t* b, int32_t* out,"""
+K1_VEC_LAUNCH = r"""  const int threads = 256;
+  const auto al = [](const void* ptr) {
+    return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+  };
+  if (W <= 4 && al(a) && al(b) && al(out) && (W == 1 || (n & 3) == 0)) {
+    const long long quads = (n >> 2) > 0 ? (n >> 2) : 1;
+    mont_mul4_kernel<W><<<static_cast<unsigned>((quads + threads - 1) /
+                                                threads),
+                          threads, 0, stream>>>(a, b, out, p, n0, n);
+    return cudaGetLastError();
+  }
+  const long long blocks"""
+K1_VARIANTS = {
+    "W <= 4: 4 elements per thread, 16-byte loads": [
+        ("\ntemplate <int W>\ncudaError_t launch(const int32_t* a, const "
+         "int32_t* b, int32_t* out,", K1_VEC_KERNEL),
+        ("  const int threads = 256;\n  const long long blocks",
+         K1_VEC_LAUNCH)],
+}
+
 KERNELS = {"K2": ("block_scan", K2_VARIANTS), "K3": ("sort", K3_VARIANTS),
-           "K4": ("block_scan2", K4_VARIANTS)}
+           "K4": ("block_scan2", K4_VARIANTS),
+           "K5": ("ntt_stage", K5_VARIANTS), "K1": ("mont_mul", K1_VARIANTS)}
 
 
 def build_all(build, kernels):
@@ -335,6 +450,97 @@ def build_all(build, kernels):
         built[key] = (ctypes.CDLL(str(jobs[key].with_suffix(".so"))),
                       cs.ptxas_report(log))
     return built
+
+
+def k1_cases(dev, rng):
+    """{case: (make, check)} for K1 on 2^20 elements of a field of each
+    width it takes; make(lib, variant) gives the call and {}."""
+    import torch
+    import chip_smoke as cs
+    from zikkurat_algebra_tpu_torch.ops import kernel_field
+    from zikkurat_algebra_tpu_torch.ops.field import Field
+
+    n, cases = 1 << 20, {}
+    for prm in cs.k1_fields():
+        f = Field(prm, dev)
+        if f"W={f.W}" in cases:
+            continue
+        a, b = (torch.from_numpy(cs.rand_canonical(rng, f.p, f.W, n)).to(dev)
+                for _ in range(2))
+        want = kernel_field.mont_mul(a, b, f)
+
+        def make(lib, variant, f=f, a=a, b=b):
+            fn = lib.zk_mont_mul
+            fn.argtypes, fn.restype = kernel_field._ARGTYPES, ctypes.c_int
+            out = torch.empty_like(a)
+
+            def call():
+                rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                        f.p32.data_ptr(), f.n0, f.W, n,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"launch failed: cudaError {rc}")
+                return out
+            return call, {"W": f.W, "field": f.params.name}
+
+        cases[f"W={f.W}"] = (make, lambda got, want=want: cs.max_limb_diff(
+            got, want))
+    return cases
+
+
+def k5_cases(dev, rng):
+    """{case: (make, check)} for K5 over a 2^20 radix-2 transform of
+    BLS12-381 Fr (W = 8) and goldilocks (W = 2), the rows already in
+    bit-reversed order, in the passes of `pass_plan` for the variant's
+    tile; make(lib, variant) gives the call and its plan, CTAs per SM and
+    shared memory per CTA."""
+    import torch
+    import chip_smoke as cs
+    from zikkurat_algebra_tpu_torch import params as P
+    from zikkurat_algebra_tpu_torch.ops import kernel_ntt
+    from zikkurat_algebra_tpu_torch.ops.field import Field
+    from zikkurat_algebra_tpu_torch.ops.ntt import NTTDomain
+
+    m, cases = 20, {}
+    for prm in (P.BLS12_381_FR, P.TEST_PRIMES["goldilocks"]):
+        f = Field(prm, dev)
+        tables = NTTDomain(f, m).tables()
+        y0 = torch.from_numpy(cs.rand_canonical(rng, f.p, f.W, 1 << m)).to(
+            dev).reshape(f.W, 1, 1 << m, 1)
+        want = y0.clone()
+        for s0, k in kernel_ntt.pass_plan(m, 0, kernel_ntt.tile_log(f.W)):
+            kernel_ntt.ntt_stages(want, tables, s0, k, f)
+
+        def make(lib, variant, f=f, tables=tables, y0=y0):
+            fn = lib.zk_ntt_stages
+            fn.argtypes, fn.restype = kernel_ntt._ARGTYPES, ctypes.c_int
+            occ = lib.zk_ntt_stages_occupancy
+            occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            lt = K5_TILES.get(variant, {}).get(f.W, kernel_ntt.tile_log(f.W))
+            per = ctypes.c_int()
+            if occ(f.W, lt, ctypes.addressof(per)):
+                raise RuntimeError("zk_ntt_stages_occupancy failed")
+            plan = kernel_ntt.pass_plan(m, 0, lt)
+            ptrs = [(ctypes.c_void_p * k)(*(t.data_ptr()
+                                            for t in tables[s0:s0 + k]))
+                    for s0, k in plan]
+            buf = y0.clone()
+
+            def call():
+                for (s0, k), pt in zip(plan, ptrs):
+                    rc = fn(buf.data_ptr(), ctypes.addressof(pt),
+                            f.p32.data_ptr(), f.one_limbs.data_ptr(), f.n0,
+                            f.W, 1, m, 0, s0, k, lt,
+                            torch.cuda.current_stream().cuda_stream)
+                    if rc:
+                        raise RuntimeError(f"launch failed: cudaError {rc}")
+                return buf
+            return call, {"plan": plan, "blocks_per_sm": per.value,
+                          "smem_bytes_per_cta": 4 * f.W << lt}
+
+        cases[f.params.name] = (make, lambda got, want=want: cs.max_limb_diff(
+            got, want))
+    return cases
 
 
 def main() -> int:
@@ -464,7 +670,7 @@ def main() -> int:
             "g2", "zk_bucket_scan2", kernel_curve._ARGTYPES2,
             lambda ops: kernel_curve._fp2_consts(f, ops.b3, ck.tower.qnr))
 
-    for kernel in kernels:
+    for kernel in [k for k in kernels if k in setups]:
         make, occupancy, check = setups[kernel]
         reps = 20 if kernel == "K3" else 3
         for name in ["committed", *KERNELS[kernel][1], "committed"]:
@@ -486,6 +692,28 @@ def main() -> int:
             if err:
                 raise AssertionError(f"{kernel} {name} differs from the "
                                      "committed kernel")
+    for kernel in [k for k in ("K1", "K5") if k in kernels]:
+        cases = k1_cases(dev, rng) if kernel == "K1" else k5_cases(dev, rng)
+        for name in ["committed", *KERNELS[kernel][1], "committed"]:
+            if (kernel, name) not in built:
+                continue
+            lib, ptxas = built[(kernel, name)]
+            for case, (make, check) in cases.items():
+                call, extra = make(lib, name)
+                err = check(call())
+                ms = cs.time_ms(call, 20, dev)
+                dev_ms = cs.graph_ms([call], 20, dev)
+                row = dict(kernel=kernel, variant=name, case=case, ms=ms,
+                           device_ms=dev_ms, max_abs_err=err,
+                           ptxas=cs.ptxas_rows(ptxas), **extra)
+                results.append(row)
+                print(f"# {kernel} {name} {case}: {ms:.4f} ms (events), "
+                      f"{dev_ms} ms (device), max |diff| {err}, "
+                      f"{json.dumps(extra)}; ptxas " + cs.ptxas_text(ptxas),
+                      flush=True)
+                if err and not name.startswith("ablation"):
+                    raise AssertionError(f"{kernel} {name} {case} differs "
+                                         "from the committed kernel")
     card = cs.smi("name,power.limit")
     print(card)
     print(json.dumps({"card": card, "library_ms": library_ms,

@@ -1,6 +1,7 @@
 """Kernels K1 to K5 on the card against their plain torch versions (K2
 and K4 as points, after `to_affine`; the others limb for limb; K1 at
-every width it takes, K5 at W = 8 and 2), small G1 and G2 MSMs and NTTs
+every width it takes, K5 at W = 8 and 2, one stage and every pass of
+stages a tile holds), small G1 and G2 MSMs and NTTs
 and the G1 decompression and subgroup test on the card against the
 oracle, and the pairing and KZG on the card against the port on the CPU.
 
@@ -363,39 +364,90 @@ def _rand_fr(f, n, seed):
     (2, 16, 64),           # more lanes than rows
 ])
 def test_ntt_stage_kernel_vs_plain(cuda_device, B, S, lanes):
-    """Kernel K5 equals its plain version limb for limb at every stage,
-    and its counter steps by one per stage; W = 12 is refused."""
+    """Kernel K5 run one stage per launch equals its plain version limb for
+    limb at every stage, and its counter steps by one per launch; W = 12
+    is refused."""
     f = Field(P.BLS12_381_FR, device=cuda_device)
     x = f.encode(_rand_fr(f, B * S * lanes, S + lanes)).reshape(
         f.W, B, S, lanes)
     for s in range(1, S.bit_length()):
         tw = f.encode(_rand_fr(f, 1 << (s - 1), 100 + s))
-        before = kernel_ntt.ntt_stage.launches
-        got = kernel_ntt.ntt_stage(x.clone(), tw, s, f)
+        before = kernel_ntt.ntt_stages.launches
+        got = kernel_ntt.ntt_stages(x.clone(), [None] * (s - 1) + [tw],
+                                    s - 1, 1, f)
         torch.cuda.synchronize()
-        assert kernel_ntt.ntt_stage.launches == before + 1
+        assert kernel_ntt.ntt_stages.launches == before + 1
         assert torch.equal(got, kernel_ntt.ntt_stage_plain(x.clone(), tw, s,
                                                            f))
     g = Field(P.BLS12_381_FP, device=cuda_device)
     y = g.encode([1, 2, 3, 4]).reshape(g.W, 1, 4, 1)
     with pytest.raises(ValueError):
-        kernel_ntt.ntt_stage(y, g.encode([1]), 1, g)
+        kernel_ntt.ntt_stages(y, [g.encode([1])], 0, 1, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("prm", ["BLS12_381_FR", "goldilocks"])
+def test_ntt_stages_kernel_every_pass(cuda_device, prm, lanes):
+    """Kernel K5 running stages s0+1 .. s0+k in one launch equals its
+    plain version limb for limb at every (s0, k) a tile holds, for S =
+    2^12 rows in a batch (goldilocks: p above R / 2, p - 1 included); one
+    launch each; k beyond the tile and W = 12 are refused."""
+    f = Field(P.TEST_PRIMES[prm] if prm == "goldilocks" else P.BLS12_381_FR,
+              device=cuda_device)
+    B, m = (3, 12) if lanes == 1 else (2, 12)
+    S = 1 << m
+    vals = _rand_fr(f, B * S * lanes, 300 + lanes)
+    vals[0] = f.p - 1
+    x = f.encode(vals).reshape(f.W, B, S, lanes)
+    tables = [f.encode(_rand_fr(f, 1 << (s - 1), 400 + s))
+              for s in range(1, m + 1)]
+    lt = kernel_ntt.tile_log(f.W)
+    for s0 in range(m):
+        for k in range(1, min(lt, m - s0) + 1):
+            before = kernel_ntt.ntt_stages.launches
+            got = kernel_ntt.ntt_stages(x.clone(), tables, s0, k, f)
+            torch.cuda.synchronize()
+            assert kernel_ntt.ntt_stages.launches == before + 1
+            want = kernel_ntt.ntt_stages_plain(x.clone(), tables, s0, k, f)
+            assert torch.equal(got, want), (s0, k)
+    y = x.clone()
+    for s0, k in kernel_ntt.pass_plan(m, lanes.bit_length() - 1, lt):
+        kernel_ntt.ntt_stages(y, tables, s0, k, f)
+    assert torch.equal(y, kernel_ntt.ntt_stages_plain(x.clone(), tables, 0,
+                                                      m, f))
+    big = [f.encode(_rand_fr(f, 1 << (s - 1), 500 + s))
+           for s in range(1, lt + 3)]
+    z = f.encode(_rand_fr(f, 1 << (lt + 2), 9)).reshape(f.W, 1, -1, 1)
+    with pytest.raises(ValueError):
+        kernel_ntt.ntt_stages(z, big, 0, lt + 1, f)
+    g = Field(P.BLS12_381_FP, device=cuda_device)
+    w = g.encode([1, 2, 3, 4]).reshape(g.W, 1, 4, 1)
+    with pytest.raises(ValueError):
+        kernel_ntt.ntt_stages(w, [g.encode([1]), g.encode([1, 2])], 0, 2, g)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,four_step", [(10, False), (9, True), (1, False)])
 def test_ntt_on_card_vs_oracle(cuda_device, m, four_step):
     """NTT and inverse on the card, batch of two, against the oracle; a
-    radix-2 transform launches K5 once per stage."""
+    transform launches K5 once per pass of `pass_plan`."""
     f = Field(P.BLS12_381_FR, device=cuda_device)
     n = 1 << m
     xs = _rand_fr(f, 2 * n, m)
     dom = NTTDomain(f, m, four_step=four_step).prepare()
     x = f.encode(xs).reshape(f.W, 2, n)
-    before = kernel_ntt.ntt_stage.launches
+    before = kernel_ntt.ntt_stages.launches
     y = dom.ntt(x)
     torch.cuda.synchronize()
-    assert kernel_ntt.ntt_stage.launches == before + m
+    if four_step:
+        mB = m // 2
+        lt = kernel_ntt.tile_log(f.W)
+        passes = (len(kernel_ntt.pass_plan(m - mB, mB, lt))
+                  + len(kernel_ntt.pass_plan(mB, m - mB, lt)))
+    else:
+        passes = len(kernel_ntt.pass_plan(m, 0, kernel_ntt.tile_log(f.W)))
+    assert kernel_ntt.ntt_stages.launches == before + passes
     want = oracle_ntt(f.p, dom.gen, xs[:n]) + oracle_ntt(f.p, dom.gen, xs[n:])
     assert f.decode(y) == want
     assert f.decode(dom.intt(y)) == xs
@@ -414,10 +466,11 @@ def test_ntt_stage_kernel_goldilocks(cuda_device):
     x = f.encode(vals).reshape(f.W, 3, 256, 1)
     for s in range(1, 9):
         tw = f.encode(_rand_fr(f, 1 << (s - 1), 200 + s))
-        before = kernel_ntt.ntt_stage.launches
-        got = kernel_ntt.ntt_stage(x.clone(), tw, s, f)
+        before = kernel_ntt.ntt_stages.launches
+        got = kernel_ntt.ntt_stages(x.clone(), [None] * (s - 1) + [tw],
+                                    s - 1, 1, f)
         torch.cuda.synchronize()
-        assert kernel_ntt.ntt_stage.launches == before + 1
+        assert kernel_ntt.ntt_stages.launches == before + 1
         assert torch.equal(got, kernel_ntt.ntt_stage_plain(x.clone(), tw, s,
                                                            f))
     m = 9
@@ -532,7 +585,7 @@ def test_curve_api_on_card_launches_kernels(cuda_device):
     vals = [rng.randrange(a.fr.p) for _ in range(1 << 12)]
     counts = (kernel_field.mont_mul, kernel_sort.sort_key_val,
               kernel_curve.bucket_scan, kernel_curve.bucket_scan2,
-              kernel_ntt.ntt_stage)
+              kernel_ntt.ntt_stages)
     for fn in counts:
         fn.launches = 0
     k = a.fr.encode(ks)

@@ -1,6 +1,6 @@
-"""The port's NTT (zikkurat_algebra_tpu_torch.ops.ntt) and the plain
-version of kernel K5 (ops/kernel_ntt.py) against the JAX package and the
-oracle.
+"""The port's NTT (zikkurat_algebra_tpu_torch.ops.ntt), the plain version
+of kernel K5 (ops/kernel_ntt.py) and its pass plan, against the JAX
+package, the oracle and the butterflies written out on ints.
 
 Inputs are made from numpy seeds and fed to both packages; results are
 compared as decoded integers mod p, exactly.  JAX domains are built
@@ -82,6 +82,65 @@ def test_ntt_stage_plain_semantics(fr, B, S, lanes):
         assert f.decode(got) == list(want.reshape(-1))
 
 
+@pytest.mark.parametrize("W,lanes", [(2, 1), (2, 8), (8, 1), (8, 8)])
+def test_pass_plan_covers_stages(W, lanes):
+    """`pass_plan` runs stages 1..m once each, in order, for m = 0..24;
+    every pass fits a tile of shared memory, and a strided pass moves at
+    least 2^COLS_LOG consecutive columns; a 2^20 radix-2 transform takes
+    at most 3 launches."""
+    lt = kernel_ntt.tile_log(W)
+    assert 4 * W << lt <= 1 << 16                 # shared memory of a tile
+    log_lanes = lanes.bit_length() - 1
+    for m in range(25):
+        plan = kernel_ntt.pass_plan(m, log_lanes, lt)
+        stages = [s for s0, k in plan for s in range(s0 + 1, s0 + k + 1)]
+        assert stages == list(range(1, m + 1)), (m, plan)
+        for s0, k in plan:
+            span = s0 + log_lanes
+            assert k >= 1
+            if span < kernel_ntt.COLS_LOG:
+                assert k + span <= lt, (m, plan)      # one contiguous tile
+            else:
+                assert k + kernel_ntt.COLS_LOG <= lt, (m, plan)
+    if lanes == 1:
+        assert len(kernel_ntt.pass_plan(20, 0, lt)) <= 3
+
+
+@pytest.mark.parametrize("prm", ["BLS12_381_FR", "goldilocks"])
+@pytest.mark.parametrize("B,S,lanes", [(1, 16, 1), (3, 8, 4), (2, 32, 1)])
+def test_ntt_stages_plain_every_pass(prm, B, S, lanes):
+    """`ntt_stages_plain` at every (s0, k) equals k single stages and the
+    butterflies written out on ints; `ntt_stages` on a CPU tensor runs
+    it."""
+    f = Field(P.TEST_PRIMES[prm] if prm == "goldilocks" else P.BLS12_381_FR,
+              device="cpu")
+    m = S.bit_length() - 1
+    vals = np.array(rand_ints(3, f.p, B * S * lanes), dtype=object).reshape(
+        B, S, lanes)
+    vals[0, 0, 0] = f.p - 1
+    ints = [rand_ints(50 + s, f.p, 1 << (s - 1)) for s in range(1, m + 1)]
+    tables = [f.encode(tw) for tw in ints]
+    x0 = f.encode(list(vals.reshape(-1))).reshape(f.W, B, S, lanes)
+    for s0 in range(m):
+        want = vals.copy()
+        for s in range(s0 + 1, m + 1):
+            half, tw, prev = 1 << (s - 1), ints[s - 1], want.copy()
+            for blk in range(0, S, 2 * half):
+                for j in range(half):
+                    u, v = prev[:, blk + j], prev[:, blk + j + half]
+                    want[:, blk + j] = (u + v * tw[j]) % f.p
+                    want[:, blk + j + half] = (u - v * tw[j]) % f.p
+            k = s - s0
+            got = kernel_ntt.ntt_stages_plain(x0.clone(), tables, s0, k, f)
+            one = x0.clone()
+            for t in range(s0 + 1, s + 1):
+                kernel_ntt.ntt_stage_plain(one, tables[t - 1], t, f)
+            assert torch.equal(got, one)
+            assert torch.equal(
+                kernel_ntt.ntt_stages(x0.clone(), tables, s0, k, f), got)
+            assert f.decode(got) == list(want.reshape(-1)), (s0, k)
+
+
 @pytest.mark.parametrize("m", [0, 1, 3, 6])
 def test_ntt_radix2_vs_jax_and_oracle(fr, m):
     """Radix-2 NTT and inverse on a batch of two against a fresh JAX
@@ -145,12 +204,18 @@ def test_domain_cache_and_errors(fr):
     x = f.encode(list(range(8))).reshape(f.W, 1, 8, 1).contiguous()
     tw = f.encode([1, 2])
     with pytest.raises(ValueError):
-        kernel_ntt.ntt_stage(x, tw, 1, f)            # table of stage 2
+        kernel_ntt.ntt_stages(x, [tw], 0, 1, f)      # table of stage 2
     with pytest.raises(ValueError):
-        kernel_ntt.ntt_stage(x, tw, 4, f)            # 8 rows: stages 1..3
+        kernel_ntt.ntt_stages(x, [None] * 3 + [tw], 3, 1, f)  # 8 rows: 1..3
     with pytest.raises(ValueError):
-        kernel_ntt.ntt_stage(x[:, :, :6].contiguous(), f.encode([1]), 1, f)
+        kernel_ntt.ntt_stages(x[:, :, :6].contiguous(), [f.encode([1])], 0,
+                              1, f)
     with pytest.raises(TypeError):
-        kernel_ntt.ntt_stage(x.long(), tw.long(), 2, f)
+        kernel_ntt.ntt_stages(x.long(), [None, tw.long()], 1, 1, f)
     with pytest.raises(ValueError):
-        kernel_ntt.ntt_stage(x.to("meta"), tw.to("meta"), 2, f)
+        kernel_ntt.ntt_stages(x.to("meta"), [None, tw.to("meta")], 1, 1, f)
+    tables = [f.encode([1]), tw, f.encode(list(range(4)))]
+    with pytest.raises(ValueError):
+        kernel_ntt.ntt_stages(x, tables, 2, 2, f)    # stages 3..4 of 3
+    with pytest.raises(ValueError):
+        kernel_ntt.ntt_stages(x, tables[::-1], 0, 2, f)   # tables swapped

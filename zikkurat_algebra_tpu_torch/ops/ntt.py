@@ -7,12 +7,14 @@ out[k] = sum_j x[j] gen^(j k); `intt` is its inverse, the 1/n included.
 
 Two schedules, the same result limb for limb:
 - radix-2 decimation in time (the default at every size): one gather by
-  the bit-reversal permutation, then m stages, each ONE launch of kernel
-  K5 (`kernel_ntt.ntt_stage`) over the whole batch;
-- four-step (Bailey), `four_step=True`: with n = A B, K5 column passes of
-  length A over B lanes, the twiddle matrix W[k1, j2] = gen^(k1 j2) by one
-  product (K1), one transpose, and K5 column passes of length B over A
-  lanes.
+  the bit-reversal permutation, then the m stages in the passes of
+  `kernel_ntt.pass_plan`, each pass ONE launch of kernel K5
+  (`kernel_ntt.ntt_stages`, several stages in shared memory) over the
+  whole batch: 3 launches for a 2^20 transform at W = 8, 2 at W = 2;
+- four-step (Bailey), `four_step=True`: with n = A B, K5 passes over the
+  columns of length A (B lanes), the twiddle matrix W[k1, j2] =
+  gen^(k1 j2) by one product (K1), one transpose, and K5 passes over the
+  columns of length B (A lanes).
 `intt` ends with one product by 1/n.  Stage s uses the table
 gen^(j 2^(m-s)), j < 2^(s-1): strided views of ONE power ladder of length
 n/2, made contiguous.
@@ -28,7 +30,7 @@ import torch
 from ..errors import DimensionError, DomainSizeError
 from ..oracle.ntt import subgroup_gen
 from .field import Field, _scan_mul
-from .kernel_ntt import ntt_stage
+from .kernel_ntt import ntt_stages, pass_plan, tile_log
 from .vector import powers
 
 HOST_LADDER_MAX = 4096      # ladders up to this length are built on the host
@@ -124,10 +126,14 @@ class NTTDomain:
         return tuple(x.shape)
 
     def _stages(self, x: torch.Tensor, tables: List[torch.Tensor]):
-        """The K5 stages along axis 2 of a (W, B, S, lanes) tensor whose
-        rows are already in bit-reversed order; in place."""
-        for s, tw in enumerate(tables, 1):
-            ntt_stage(x, tw, s, self.field)
+        """The stages along axis 2 of a (W, B, S, lanes) tensor whose rows
+        are already in bit-reversed order, one K5 launch per pass of
+        `pass_plan`; in place."""
+        f = self.field
+        log_rows, log_lanes = (x.shape[2].bit_length() - 1,
+                               x.shape[3].bit_length() - 1)
+        for s0, k in pass_plan(log_rows, log_lanes, tile_log(f.W)):
+            ntt_stages(x, tables, s0, k, f)
         return x
 
     def _radix2(self, x: torch.Tensor, inverse: bool) -> torch.Tensor:
