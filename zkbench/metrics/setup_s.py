@@ -1,0 +1,4 @@
+"""Set-up: process start to the end of the warm-up, host clock."""
+
+def read(rec):
+    return rec.setup_s
