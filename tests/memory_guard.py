@@ -15,7 +15,10 @@ then ends the largest worker mid-test.  So:
   them, and recompiling costs 190 s a case), and after every test
   `malloc_trim(0)` returns the freed heap to the system;
 - the HEAVY tests come first in the collection, so that their serial
-  lane, most of the run's wall time, starts at once.
+  lane, most of the run's wall time, starts at once; the card's tests
+  (marked `gpu`, skipped without a card) come next, so that the first
+  worker's first batch of tests, which waits behind that lane, holds
+  no test that runs here.
 
 Each worker runs its tests in collection order.  `tests/test_parallel.py`
 leaves NTT domains whose tables were made inside `shard_map` in the JAX
@@ -53,7 +56,8 @@ def is_heavy(item):
 
 def pytest_collection_modifyitems(items):
     items.sort(key=lambda item: 0 if is_heavy(item) else
-               2 if item.path.name == LAST_MODULE else 1)       # stable
+               1 if item.get_closest_marker("gpu") else
+               3 if item.path.name == LAST_MODULE else 2)       # stable
 
 
 def trim_heap():

@@ -17,7 +17,7 @@ from zikkurat_algebra_tpu_torch import api, params as P
 from zikkurat_algebra_tpu_torch.errors import (
     DimensionError, DomainSizeError, MeshError, UnsupportedError,
     ZikkuratError)
-from zikkurat_algebra_tpu_torch.ops import kernel_field
+from zikkurat_algebra_tpu_torch.ops import kernel_field, msm
 from zikkurat_algebra_tpu_torch.ops.tower import get_tower
 from zikkurat_algebra_tpu_torch.parallel.mesh import make_mesh
 from zikkurat_algebra_tpu_torch.utils import profiling
@@ -113,6 +113,31 @@ def test_profiling_helpers(tmp_path):
     names = {e.get("name") for e in events["traceEvents"]}
     assert "aten::sum" in names
     assert any(e.key == "aten::sum" for e in prof.key_averages())
+
+
+def test_trace_holds_the_port_spans(tmp_path):
+    """Under profiling.trace the port's spans are `zk.` ranges in the
+    Chrome trace, beside the aten operations on the profiler's clock;
+    the registry records nothing there, even under recording()."""
+    ck = api.bls12_381("cpu").curves
+    og = ck.oracle_g1
+    pts = [og.scalar_mul(s, og.gen) for s in (3, 5)] * 8
+    ks = list(range(1, 17))
+    m = msm.MSM(ck.g1, 8)
+    profiling.reset()
+    with profiling.trace(str(tmp_path)):
+        with profiling.recording():
+            res = m.msm_std(ck.fr.encode(ks, mont=False), ck.encode_g1(pts),
+                            4, 8)
+    events = json.loads((tmp_path / profiling.TRACE_FILE).read_text())
+    zk = {e["name"]: e for e in events["traceEvents"]
+          if e.get("name", "").startswith("zk.")}
+    assert {"zk.msm.std", "zk.msm.horner", "zk.msm.bucket_scan"} <= set(zk)
+    std, horner = zk["zk.msm.std"], zk["zk.msm.horner"]
+    assert std["ts"] <= horner["ts"]
+    assert horner["ts"] + horner["dur"] <= std["ts"] + std["dur"]
+    assert profiling.records() == [] and profiling.totals() == {}
+    assert ck.decode_g1(ck.g1.to_affine(res)) == og.msm(ks, pts)
 
 
 def test_typed_boundary_errors():

@@ -604,3 +604,86 @@ def test_curve_api_on_card_launches_kernels(cuda_device):
     assert got == want
     assert a.fr.decode(y) == cpu.fr.decode(cpu.ntt_domain(12).ntt(
         cpu.fr.encode(vals)))
+
+
+@pytest.mark.gpu
+def test_msm_stage_seconds_on_card_one_wait(cuda_device, monkeypatch):
+    """A 2^16 G1 MSM with stage_seconds waits for the card at most once
+    (no synchronise between stages), gives the result of the untimed
+    call, and its stage times add up to within 10% of the call's
+    synchronised wall time; the stages' launches add up to the call's."""
+    import time
+
+    from zikkurat_algebra_tpu_torch.ops.msm import STAGES
+    from zikkurat_algebra_tpu_torch.utils import profiling
+
+    ck = CurveKernels(P.BLS12_381, device=cuda_device)
+    seeds = load_jax_seed_points(SEEDS_G1, ck.fp)
+    n = 1 << 16
+    reps = -(-n // seeds[0].shape[-1])
+    pts = tuple(t.repeat(*([1] * (t.ndim - 1)), reps)[..., :n].contiguous()
+                for t in seeds)
+    g = torch.Generator().manual_seed(61)
+    k = torch.randint(-2**31, 2**31 - 1, (8, n), generator=g,
+                      dtype=torch.int32)
+    k[7] &= 0x3FFFFFFF                                 # below r
+    k = k.to(cuda_device)
+    m = ck.msm("g1")
+    plain = ck.decode_g1(ck.g1.to_affine(m.msm_std(k, pts)))
+    waits = []
+    sync, ev_sync = torch.cuda.synchronize, torch.cuda.Event.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: (waits.append("device"), sync(*a))[1])
+    monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                        lambda ev: (waits.append("event"), ev_sync(ev))[1])
+    profiling.reset()
+    st = {}
+    sync()
+    t = time.perf_counter()
+    res = m.msm_std(k, pts, stage_seconds=st)
+    assert len(waits) <= 1, waits
+    sync()
+    wall = time.perf_counter() - t
+    assert ck.decode_g1(ck.g1.to_affine(res)) == plain
+    assert sorted(st) == sorted(STAGES)
+    assert abs(sum(st.values()) - wall) <= 0.1 * wall, (st, wall)
+    tot = profiling.totals()
+    top = tot["msm.std"]["launches"]
+    assert top["bucket_scan"] == 1 and top["sort_key_val"] == 1
+    assert top["mont_mul"] > 0
+    assert {c: sum(tot[f"msm.{s}"]["launches"][c] for s in STAGES)
+            for c in top} == top
+    profiling.reset()
+
+
+@pytest.mark.gpu
+def test_protocol_spans_on_card(cuda_device):
+    """KZG commit, open and verify on the card under recording(): the
+    spans kzg.commit (holding msm.std), kzg.open (holding kzg.commit)
+    and kzg.verify (holding pairing.miller_loop and pairing.final_exp),
+    each with a device interval read from its events."""
+    from zikkurat_algebra_tpu_torch.protocols import kzg
+    from zikkurat_algebra_tpu_torch.utils import profiling
+
+    curve = P.BLS12_381
+    s = kzg.new_setup(curve, 4, 12345, device=cuda_device)
+    fr = CurveKernels(curve, device=cuda_device).fr
+    r = random.Random(62)
+    coeffs = fr.encode([r.randrange(fr.p) for _ in range(16)])
+    x0 = fr.encode(r.randrange(fr.p))
+    profiling.reset()
+    with profiling.recording():
+        com = kzg.commit_poly(s, coeffs)
+        y0, proof = kzg.opening_proof(s, coeffs, x0)
+        ok = bool(kzg.verify_proof(s, com, proof, x0, y0))
+    assert ok
+    tot = profiling.totals()
+    pairs = {(rec.parent, rec.name) for rec in profiling.records()}
+    assert {(None, "kzg.commit"), ("kzg.commit", "msm.std"),
+            (None, "kzg.open"), ("kzg.open", "kzg.commit"),
+            (None, "kzg.verify"), ("kzg.verify", "pairing.miller_loop"),
+            ("kzg.verify", "pairing.final_exp")} <= pairs
+    assert tot["kzg.commit"]["calls"] == 2
+    assert all(tot[n]["device_s"] > 0 for n in tot)
+    assert tot["pairing.final_exp"]["launches"]["mont_mul"] > 0
+    profiling.reset()

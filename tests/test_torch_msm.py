@@ -6,7 +6,9 @@ functions of the same name on the same inputs; one whole MSM of each
 group is held against `msm_std` of the JAX package.  Projective values
 from the two packages may differ by the order of additions, so points
 are compared after `to_affine`.  The edge cases are held against the
-oracle alone.
+oracle alone.  The stage spans of `utils.profiling` are checked on a
+32-point MSM of 12-bit scalars (four windows), which the CPU runs in a
+fraction of a second.
 """
 
 import random
@@ -21,8 +23,10 @@ from zikkurat_algebra_tpu.ops import msm as jmsm
 from zikkurat_algebra_tpu.ops.curve import get_curves
 from zikkurat_algebra_tpu_torch import params as P
 from zikkurat_algebra_tpu_torch.errors import DimensionError, UnsupportedError
-from zikkurat_algebra_tpu_torch.ops import msm
+from zikkurat_algebra_tpu_torch.ops import (kernel_curve, kernel_field,
+                                            kernel_ntt, kernel_sort, msm)
 from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
+from zikkurat_algebra_tpu_torch.utils import profiling
 
 pytest_plugins = ["memory_guard"]
 torch.set_num_threads(1)
@@ -183,3 +187,107 @@ def test_msm_group_names():
     with pytest.raises(ValueError):
         ck.msm("g3")
     assert ck.msm("g2").ops is ck.g2 and ck.msm("g1").ops is ck.g1
+
+
+@pytest.fixture(scope="module")
+def small_msm(ck):
+    """An MSM of 32 points (4 distinct) with 12-bit scalars at c = 4: the
+    MSM, its scalars, its points and the oracle's answer."""
+    og = ck.oracle_g1
+    base = rand_points(og, 4, 50)
+    pts = [base[i % 4] for i in range(32)]
+    r = random.Random(51)
+    ks = [r.randrange(1 << 12) for _ in range(32)]
+    return (msm.MSM(ck.g1, 12), ck.fr.encode(ks, mont=False),
+            ck.encode_g1(pts), og.msm(ks, pts))
+
+
+def test_msm_stage_spans(ck, small_msm):
+    """Under recording() each stage is a span once per call, a child of
+    msm.std with the call's operation id; a stage_seconds dict alone
+    turns recording on, its keys are the stage spans' and it adds up
+    across calls; the children's launches add up to the call's."""
+    m, k, A, want = small_msm
+    profiling.reset()
+    st = {}
+    with profiling.recording():
+        res = m.msm_std(k, A, 4, 16)
+        m.msm_std(k, A, 4, 16, stage_seconds=st)
+    first = dict(st)
+    m.msm_std(k, A, 4, 16, stage_seconds=st)
+    assert ck.decode_g1(ck.g1.to_affine(res)) == want
+    by_op = {}
+    for r in profiling.records():
+        by_op.setdefault(r.op, []).append(r)
+    assert len(by_op) == 3
+    stage_spans = sorted(f"msm.{s}" for s in msm.STAGES)
+    for recs in by_op.values():
+        assert [r.name for r in recs if r.parent is None] == ["msm.std"]
+        kids = [r for r in recs if r.parent == "msm.std"]
+        assert sorted(r.name for r in kids) == stage_spans
+        assert len(recs) == 1 + len(kids)
+        top = recs[-1]
+        assert top.name == "msm.std"
+        assert sum(r.host_s for r in kids) <= top.host_s
+        assert [sum(x) for x in zip(*(r.launches for r in kids))] == \
+            list(top.launches)
+    assert sorted(f"msm.{s}" for s in st) == stage_spans
+    assert all(st[s] > first[s] > 0 for s in msm.STAGES)
+    tot = profiling.totals()
+    assert tot["msm.std"]["calls"] == 3
+    assert all(tot[n]["calls"] == 3 for n in stage_spans)
+    profiling.reset()
+    assert profiling.records() == [] and profiling.totals() == {}
+
+
+def test_spans_off_do_one_flag_check(ck, small_msm, monkeypatch):
+    """Recording off and no profiler: an MSM and to_affine record nothing,
+    open no record_function, make no CUDA event and no span object."""
+    def refuse(*a, **k):
+        raise AssertionError("a span site did more than check its flags")
+
+    for owner, name in [(torch.autograd.profiler, "record_function"),
+                        (torch.profiler, "record_function"),
+                        (torch.cuda, "Event"), (profiling, "_Span"),
+                        (profiling, "SpanRecord")]:
+        monkeypatch.setattr(owner, name, refuse)
+    m, k, A, want = small_msm
+    profiling.reset()
+    assert ck.decode_g1(ck.g1.to_affine(m.msm_std(k, A, 4, 16))) == want
+    assert profiling.records() == [] and profiling.totals() == {}
+
+
+def test_span_launch_deltas_add_up(monkeypatch):
+    """The launch deltas of nested spans add up to the counters' change
+    over the outer span (the counters moved by hand: on the CPU no
+    kernel launches)."""
+    kernels = dict(zip(profiling.LAUNCHES, (
+        kernel_field.mont_mul, kernel_curve.bucket_scan,
+        kernel_sort.sort_key_val, kernel_ntt.ntt_stages,
+        kernel_curve.bucket_scan2)))
+    for fn in kernels.values():
+        monkeypatch.setattr(fn, "launches", fn.launches)
+    before = {n: fn.launches for n, fn in kernels.items()}
+
+    def bump(**by):
+        for n, d in by.items():
+            kernels[n].launches += d
+
+    profiling.reset()
+    with profiling.recording():
+        with profiling.span("outer"):
+            with profiling.span("outer.a"):
+                bump(mont_mul=3, bucket_scan=1)
+            bump(sort_key_val=1)
+            with profiling.span("outer.b"):
+                bump(ntt_stages=2, bucket_scan2=1, mont_mul=1)
+    tot = profiling.totals()
+    change = {n: fn.launches - before[n] for n, fn in kernels.items()}
+    assert tot["outer"]["launches"] == change == dict(
+        mont_mul=4, bucket_scan=1, sort_key_val=1, ntt_stages=2,
+        bucket_scan2=1)
+    a, b = tot["outer.a"]["launches"], tot["outer.b"]["launches"]
+    assert {n: a[n] + b[n] for n in change} == dict(change, sort_key_val=0)
+    assert tot["outer"]["calls"] == 1
+    assert tot["outer"]["device_s"] == tot["outer"]["host_s"] > 0
+    profiling.reset()

@@ -10,6 +10,8 @@ tests can leave holding values traced under `shard_map`; the
 after.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ from zikkurat_algebra_tpu_torch.errors import DimensionError
 from zikkurat_algebra_tpu_torch.ops import vector as V
 from zikkurat_algebra_tpu_torch.ops.field import Field
 from zikkurat_algebra_tpu_torch.ops.poly import PolyOps, get_poly_ops
+from zikkurat_algebra_tpu_torch.utils import profiling
 
 pytest_plugins = ["memory_guard"]
 torch.set_num_threads(1)
@@ -229,3 +232,38 @@ def test_div_by_vanishing_vs_jax(fields, polys, na, n):
     prod[0] = (prod[0] + 1) % f.p
     _, ok = po.quot_by_vanishing(f.encode(prod), n, e)
     assert not bool(ok)
+
+
+POLY_SPANS = {"poly.mul_ntt": None, "poly.lift": "poly.mul_ntt",
+              "ntt.forward": "poly.mul_ntt", "poly.pointwise": "poly.mul_ntt",
+              "ntt.inverse": "poly.mul_ntt"}
+
+
+def test_mul_ntt_spans(fields, polys, tmp_path):
+    """A product of 2^6 through the NTT: under recording() its spans nest
+    as `PolyOps.mul_ntt` runs them, each transform holding one gather
+    and one set of K5 passes; under profiling.trace they are `zk.`
+    ranges of the Chrome trace."""
+    f, _ = fields
+    po, _ = polys
+    av, bv = rand_ints(60, f.p, 32), rand_ints(61, f.p, 32)
+    a, b = f.encode(av), f.encode(bv)
+    profiling.reset()
+    with profiling.recording():
+        c = po.mul_ntt(a, b)
+    assert f.decode(c) == f.decode(po.mul_naive(a, b))
+    recs = profiling.records()
+    assert {r.op for r in recs} == {recs[-1].op}
+    assert {r.name: r.parent for r in recs
+            if r.parent in (None, "poly.mul_ntt")} == POLY_SPANS
+    inner = sorted((r.parent, r.name) for r in recs
+                   if r.name in ("ntt.gather", "ntt.passes"))
+    assert inner == [(t, n) for t in ("ntt.forward", "ntt.inverse")
+                     for n in ("ntt.gather", "ntt.passes")]
+    profiling.reset()
+    with profiling.trace(str(tmp_path)):
+        po.mul_ntt(a, b)
+    events = json.loads((tmp_path / profiling.TRACE_FILE).read_text())
+    names = {e.get("name") for e in events["traceEvents"]}
+    assert {"zk." + n for n in POLY_SPANS} | {"zk.ntt.gather",
+                                              "zk.ntt.passes"} <= names

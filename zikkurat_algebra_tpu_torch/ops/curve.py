@@ -33,6 +33,7 @@ import torch
 from ..errors import UnsupportedError
 from ..oracle.groups import g1_group, g2_group
 from ..params import CurveParams
+from ..utils import profiling as prof
 from . import limbs as lb
 from .field import resolve_device
 from .tower import get_tower
@@ -304,9 +305,10 @@ class ProjCurveOps:
     def to_affine(self, P: Point) -> AffBatch:
         """(X/Z, Y/Z, inf) through one batched inversion."""
         f = self.f
-        inf = self.is_inf(P)
-        zinv = f.batch_inv(P[2])
-        x, y = f.mul_list([(P[0], zinv), (P[1], zinv)])
+        with prof.span("curve.to_affine", P[2]):
+            inf = self.is_inf(P)
+            zinv = f.batch_inv(P[2])
+            x, y = f.mul_list([(P[0], zinv), (P[1], zinv)])
         return (x, y, inf)
 
     def from_affine(self, A: AffBatch) -> Point:

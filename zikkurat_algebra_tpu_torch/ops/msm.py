@@ -22,21 +22,29 @@ reads `ops.f.struct_ndim` leading axes, one for Fp (G1), two for Fp2
 8. Horner: res = 2^c res + W_w from the top window down.
 
 Every field product inside goes through kernel K1.
+
+Each stage is a span of `utils.profiling` (`msm.digits` ... `msm.horner`
+inside `msm.std`); `stage_seconds` collects their device intervals.
 """
 
 from __future__ import annotations
 
 import math
-import time
 from typing import Dict, Optional
 
 import torch
 
 from ..errors import DimensionError
+from ..utils import profiling as prof
 from . import limbs as lb
 from .curve import AffBatch, Point, ProjCurveOps
 from .kernel_curve import bucket_scan
 from .kernel_sort import sort_key_val
+
+
+STAGES = ("digits", "sort", "bucket_scan", "level2", "extraction",
+          "weighted_sum", "horner")
+_STAGE_SPANS = {f"msm.{s}": s for s in STAGES}
 
 
 def window_size(n: int) -> int:
@@ -169,24 +177,6 @@ def _weighted_bucket_sum(ops: ProjCurveOps, S: Point) -> Point:
     return ops.add(Whi, _wsum_bits(ops, C, 1))
 
 
-class _Stages:
-    """Wall time of each MSM stage, the device synchronised at each end."""
-
-    def __init__(self, out: Optional[Dict[str, float]], device):
-        self.out = out
-        self.sync = (torch.cuda.synchronize if device.type == "cuda"
-                     else (lambda: None))
-        self.t = time.perf_counter()
-
-    def mark(self, name: str):
-        if self.out is None:
-            return
-        self.sync()
-        now = time.perf_counter()
-        self.out[name] = self.out.get(name, 0.0) + now - self.t
-        self.t = now
-
-
 class MSM:
     """Pippenger MSM bound to one curve group (G1 or G2)."""
 
@@ -222,25 +212,26 @@ class MSM:
             raise ValueError(f"block must be positive, not {block}")
         if c is None:
             c = window_size(n)
-        st = _Stages(stage_seconds, k_limbs.device)
         nbuckets = (1 << (c - 1)) + 1
-        sdig = self.digits(k_limbs, c, block)
-        x, y, inf = points
-        pad = sdig.shape[1] - n
-        if pad:
-            x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], -1)
-            y = torch.cat([y, y.new_zeros(y.shape[:-1] + (pad,))], -1)
-            inf = torch.cat([inf, inf.new_ones(pad)])
-        st.mark("digits")
+        with prof.stages(stage_seconds, _STAGE_SPANS):
+            with prof.span("msm.digits", k_limbs):
+                sdig = self.digits(k_limbs, c, block)
+                x, y, inf = points
+                pad = sdig.shape[1] - n
+                if pad:
+                    x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], -1)
+                    y = torch.cat([y, y.new_zeros(y.shape[:-1] + (pad,))], -1)
+                    inf = torch.cat([inf, inf.new_ones(pad)])
 
-        # K3 sorts |digit| along each row, carrying the position index
-        nwin, npad = sdig.shape
-        pos = torch.arange(npad, dtype=torch.int32, device=sdig.device)
-        _, (idx,) = sort_key_val(sdig.abs(),
-                                 pos.expand(1, nwin, npad).contiguous(),
-                                 nbuckets.bit_length())
-        sd = torch.gather(sdig, 1, idx.long())
-        st.mark("sort")
+            # K3 sorts |digit| along each row, carrying the position index
+            with prof.span("msm.sort", k_limbs):
+                nwin, npad = sdig.shape
+                pos = torch.arange(npad, dtype=torch.int32,
+                                   device=sdig.device)
+                _, (idx,) = sort_key_val(
+                    sdig.abs(), pos.expand(1, nwin, npad).contiguous(),
+                    nbuckets.bit_length())
+                sd = torch.gather(sdig, 1, idx.long())
         pts = (x.contiguous(), y.contiguous(), inf.contiguous())
         return c, nbuckets, pts, sd, idx
 
@@ -250,36 +241,41 @@ class MSM:
         """sum_i k_i P_i for canonical standard-rep scalar limbs (Wr, N)
         and affine points (x, y, inf), x and y (W, N) over Fp or
         (W, 2, N) over Fp2; returns one projective point.
-        `stage_seconds`, when given, collects each stage's wall time."""
+        `stage_seconds`, when given, adds each stage's device interval
+        (`STAGES`), the call recording its spans; the card is waited on
+        once, after the call."""
         ops = self.ops
-        c, nbuckets, (x, y, inf), sd, idx = self.group(
-            k_limbs, points, c, block, stage_seconds)
-        st = _Stages(stage_seconds, k_limbs.device)
-        nwin, n = sd.shape
+        with prof.stages(stage_seconds, _STAGE_SPANS), \
+                prof.span("msm.std", k_limbs):
+            c, nbuckets, (x, y, inf), sd, idx = self.group(
+                k_limbs, points, c, block)
+            nwin, n = sd.shape
 
-        buckets, S = bucket_scan(ops, x, y, inf, sd, idx, block, nbuckets)
-        st.mark("bucket_scan")
+            with prof.span("msm.bucket_scan"):
+                buckets, S = bucket_scan(ops, x, y, inf, sd, idx, block,
+                                         nbuckets)
 
-        a = sd.abs().view(nwin, n // block, block)
-        C, cidx = _level2_carries(ops, a[..., 0], a[..., -1], S, nbuckets)
-        st.mark("level2")
+            with prof.span("msm.level2"):
+                a = sd.abs().view(nwin, n // block, block)
+                C, cidx = _level2_carries(ops, a[..., 0], a[..., -1], S,
+                                          nbuckets)
 
-        rows = torch.arange(nwin, device=cidx.device)[:, None]
-        fixed = ops.add(tuple(b[..., rows, cidx] for b in buckets), C)
-        for b, v in zip(buckets, fixed):
-            b[..., rows, cidx] = v
-        buckets = tuple(b[..., 1:nbuckets] for b in buckets)
-        st.mark("extraction")
+            with prof.span("msm.extraction"):
+                rows = torch.arange(nwin, device=cidx.device)[:, None]
+                fixed = ops.add(tuple(b[..., rows, cidx] for b in buckets), C)
+                for b, v in zip(buckets, fixed):
+                    b[..., rows, cidx] = v
+                buckets = tuple(b[..., 1:nbuckets] for b in buckets)
 
-        Ws = _weighted_bucket_sum(ops, buckets)
-        st.mark("weighted_sum")
+            with prof.span("msm.weighted_sum"):
+                Ws = _weighted_bucket_sum(ops, buckets)
 
-        res = tuple(w[..., nwin - 1] for w in Ws)
-        for wi in range(nwin - 2, -1, -1):
-            for _ in range(c):
-                res = ops.dbl(res)
-            res = ops.add(res, tuple(w[..., wi] for w in Ws))
-        st.mark("horner")
+            with prof.span("msm.horner"):
+                res = tuple(w[..., nwin - 1] for w in Ws)
+                for wi in range(nwin - 2, -1, -1):
+                    for _ in range(c):
+                        res = ops.dbl(res)
+                    res = ops.add(res, tuple(w[..., wi] for w in Ws))
         return res
 
 
@@ -291,5 +287,7 @@ class CurveMSM(MSM):
         self.fr = fr
 
     def msm_mont(self, k_mont: torch.Tensor, points: AffBatch,
-                 c: Optional[int] = None, block: int = 512) -> Point:
-        return self.msm_std(self.fr.from_mont(k_mont), points, c, block)
+                 c: Optional[int] = None, block: int = 512,
+                 stage_seconds: Optional[Dict[str, float]] = None) -> Point:
+        return self.msm_std(self.fr.from_mont(k_mont), points, c, block,
+                            stage_seconds)

@@ -17,7 +17,9 @@ Two schedules, the same result limb for limb:
   columns of length B (A lanes).
 `intt` ends with one product by 1/n.  Stage s uses the table
 gen^(j 2^(m-s)), j < 2^(s-1): strided views of ONE power ladder of length
-n/2, made contiguous.
+n/2, made contiguous.  Spans (`utils.profiling`): `ntt.forward` /
+`ntt.inverse`, and inside them `ntt.gather` (the bit-reversal
+`index_select`) and `ntt.passes` (the K5 launches).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from ..errors import DimensionError, DomainSizeError
 from ..oracle.ntt import subgroup_gen
+from ..utils import profiling as prof
 from .field import Field, _scan_mul
 from .kernel_ntt import ntt_stages, pass_plan, tile_log
 from .vector import powers
@@ -132,13 +135,15 @@ class NTTDomain:
         f = self.field
         log_rows, log_lanes = (x.shape[2].bit_length() - 1,
                                x.shape[3].bit_length() - 1)
-        for s0, k in pass_plan(log_rows, log_lanes, tile_log(f.W)):
-            ntt_stages(x, tables, s0, k, f)
+        with prof.span("ntt.passes"):
+            for s0, k in pass_plan(log_rows, log_lanes, tile_log(f.W)):
+                ntt_stages(x, tables, s0, k, f)
         return x
 
     def _radix2(self, x: torch.Tensor, inverse: bool) -> torch.Tensor:
         shape = self._check(x)
-        y = x.reshape(shape[0], -1, self.n).index_select(2, self.perm())
+        with prof.span("ntt.gather"):
+            y = x.reshape(shape[0], -1, self.n).index_select(2, self.perm())
         y = self._stages(y.unsqueeze(-1), self.tables(inverse))
         return y.reshape(shape)
 
@@ -149,10 +154,13 @@ class NTTDomain:
         shape = self._check(x)
         f = self.field
         A, B = 1 << self._mA, 1 << self._mB
-        X = x.reshape(f.W, -1, A, B).index_select(2, self._subA.perm())
+        with prof.span("ntt.gather"):
+            X = x.reshape(f.W, -1, A, B).index_select(2, self._subA.perm())
         X = self._stages(X.contiguous(), self._subA.tables(inverse))
         X = f.mul(X, self.twiddle_matrix(inverse).unsqueeze(1))
-        X = X.transpose(2, 3).index_select(2, self._subB.perm()).contiguous()
+        with prof.span("ntt.gather"):
+            X = X.transpose(2, 3).index_select(2, self._subB.perm())
+        X = X.contiguous()
         X = self._stages(X, self._subB.tables(inverse))
         return X.reshape(shape)
 
@@ -163,13 +171,15 @@ class NTTDomain:
 
     def ntt(self, x: torch.Tensor) -> torch.Tensor:
         """Forward NTT of Montgomery-form coefficients (W, *batch, n)."""
-        return self._transform(x, False)
+        with prof.span("ntt.forward", x):
+            return self._transform(x, False)
 
     def intt(self, x: torch.Tensor) -> torch.Tensor:
         """Inverse NTT, the division by n included."""
-        y = self._transform(x, True)
-        f = self.field
-        return f.mul(y, f.const(self.n_inv, y.shape[1:]))
+        with prof.span("ntt.inverse", x):
+            y = self._transform(x, True)
+            f = self.field
+            return f.mul(y, f.const(self.n_inv, y.shape[1:]))
 
     def __repr__(self):
         kind = "four-step" if self.four_step else "radix-2"

@@ -22,6 +22,7 @@ The loop bits and the hard part's subset indices are host ints, so the
 JAX package's `lax.scan` / `lax.cond` / table gather become Python loops,
 `if`s and list indexing, and nothing is read back from the device.
 Every Fp12 product is one K1 launch (54 base products per element).
+Spans (`utils.profiling`): `pairing.miller_loop`, `pairing.final_exp`.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..errors import UnsupportedError
 from ..oracle.pairing import Pairing as OraclePairing
 from ..params import CurveParams
 from .curve import AffBatch, CurveKernels, Point, get_curves
+from ..utils import profiling as prof
 from .field import resolve_device
 
 
@@ -131,31 +133,34 @@ class PairingKernels:
     def miller_loop(self, P: AffBatch, Q: AffBatch) -> torch.Tensor:
         """f_{s,Q}(P) up to Fp2* factors, (W, 2, 3, 2, *batch), for affine
         G1 points P (x (W, *batch)) and G2 points Q (x (W, 2, *batch))."""
-        f12, f2 = self.tower.fp12, self.tower.fp2
-        g2 = self.ck.g2
-        xp, yp, _ = P
-        xq, yq, _ = Q
-        batch = tuple(xp.shape[1:])
-        f = f12.one(batch)
-        T = g2.from_affine(Q)
-        for bit in self.loop_bits:
-            line = self._sparse12(*self._line_dbl(T, xp, yp))
-            T = g2.dbl(T)
-            f = f12.mul(f12.sqr(f), line)
-            if bit:
-                line = self._sparse12(*self._line_add(T, (xq, yq), xp, yp))
-                T = g2.madd(T, Q)
-                f = f12.mul(f, line)
-        if self.curve.family == "bn":
-            # T += pi(Q), T += -pi^2(Q)
-            pi_q = self.g2_frobenius((xq, yq))
-            x2, y2 = self.g2_frobenius(pi_q)
-            finite = torch.zeros(batch, dtype=torch.bool, device=xp.device)
-            for q in (pi_q, (x2, f2.neg(y2))):
-                line = self._sparse12(*self._line_add(T, q, xp, yp))
-                T = g2.madd(T, (q[0], q[1], finite))
-                f = f12.mul(f, line)
-        return f
+        with prof.span("pairing.miller_loop", self.device):
+            f12, f2 = self.tower.fp12, self.tower.fp2
+            g2 = self.ck.g2
+            xp, yp, _ = P
+            xq, yq, _ = Q
+            batch = tuple(xp.shape[1:])
+            f = f12.one(batch)
+            T = g2.from_affine(Q)
+            for bit in self.loop_bits:
+                line = self._sparse12(*self._line_dbl(T, xp, yp))
+                T = g2.dbl(T)
+                f = f12.mul(f12.sqr(f), line)
+                if bit:
+                    line = self._sparse12(
+                        *self._line_add(T, (xq, yq), xp, yp))
+                    T = g2.madd(T, Q)
+                    f = f12.mul(f, line)
+            if self.curve.family == "bn":
+                # T += pi(Q), T += -pi^2(Q)
+                pi_q = self.g2_frobenius((xq, yq))
+                x2, y2 = self.g2_frobenius(pi_q)
+                finite = torch.zeros(batch, dtype=torch.bool,
+                                     device=xp.device)
+                for q in (pi_q, (x2, f2.neg(y2))):
+                    line = self._sparse12(*self._line_add(T, q, xp, yp))
+                    T = g2.madd(T, (q[0], q[1], finite))
+                    f = f12.mul(f, line)
+            return f
 
     # -- final exponentiation ---------------------------------------------------------
     def cyclotomic_sqr(self, a: torch.Tensor) -> torch.Tensor:
@@ -190,33 +195,35 @@ class PairingKernels:
 
     def final_exp(self, f: torch.Tensor) -> torch.Tensor:
         """f^((p^12 - 1) / r) (pairing.py:263)."""
-        t = self.tower
-        f12 = t.fp12
-        # easy part: f^(p^6 - 1) = conj(f) / f, then ^(p^2 + 1)
-        f1 = f12.mul(t.fp12_conj(f), f12.inv(f))
-        y = f12.mul(t.fp12_frobenius(f1, 2), f1)
-        J = len(self.hard_digits)
-        bases = [y]
-        for _ in range(1, J):
-            bases.append(t._frob1(bases[-1]))
-        # subset products T[s] = prod_{j in s} bases[j], one launch per
-        # subset size
-        T = {1 << j: b for j, b in enumerate(bases)}
-        for size in range(2, J + 1):
-            todo = [s for s in range(1, 1 << J) if bin(s).count("1") == size]
-            pairs = []
-            for s in todo:
-                j = (s & -s).bit_length() - 1         # the lowest element
-                pairs.append((T[s & (s - 1)], bases[j]))
-            for s, v in zip(todo, f12.mul_list(pairs)):
-                T[s] = v
-        acc = None
-        for i in self.hard_subset_idx:
-            if acc is not None:
-                acc = self.cyclotomic_sqr(acc)
-            if i:
-                acc = T[i] if acc is None else f12.mul(acc, T[i])
-        return f12.one(f.shape[4:]).contiguous() if acc is None else acc
+        with prof.span("pairing.final_exp", self.device):
+            t = self.tower
+            f12 = t.fp12
+            # easy part: f^(p^6 - 1) = conj(f) / f, then ^(p^2 + 1)
+            f1 = f12.mul(t.fp12_conj(f), f12.inv(f))
+            y = f12.mul(t.fp12_frobenius(f1, 2), f1)
+            J = len(self.hard_digits)
+            bases = [y]
+            for _ in range(1, J):
+                bases.append(t._frob1(bases[-1]))
+            # subset products T[s] = prod_{j in s} bases[j], one launch per
+            # subset size
+            T = {1 << j: b for j, b in enumerate(bases)}
+            for size in range(2, J + 1):
+                todo = [s for s in range(1, 1 << J)
+                        if bin(s).count("1") == size]
+                pairs = []
+                for s in todo:
+                    j = (s & -s).bit_length() - 1     # the lowest element
+                    pairs.append((T[s & (s - 1)], bases[j]))
+                for s, v in zip(todo, f12.mul_list(pairs)):
+                    T[s] = v
+            acc = None
+            for i in self.hard_subset_idx:
+                if acc is not None:
+                    acc = self.cyclotomic_sqr(acc)
+                if i:
+                    acc = T[i] if acc is None else f12.mul(acc, T[i])
+            return f12.one(f.shape[4:]).contiguous() if acc is None else acc
 
     # -- pairings ---------------------------------------------------------------------
     def pairing(self, P: AffBatch, Q: AffBatch) -> torch.Tensor:

@@ -20,6 +20,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from ..errors import DimensionError
+from ..utils import profiling as prof
 from . import limbs as lb
 from .field import Field, _scan_mul
 from .ntt import get_domain
@@ -123,7 +124,8 @@ class PolyOps:
 
     def mul_ntt(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Product through the NTT: both operands in one forward transform,
-        one pointwise product, one inverse transform."""
+        one pointwise product, one inverse transform (spans `poly.mul_ntt`,
+        `poly.lift`, `ntt.forward`, `poly.pointwise`, `ntt.inverse`)."""
         na, nb = a.shape[-1], b.shape[-1]
         nout = na + nb - 1
         dom = get_domain(self.f, max(1, (nout - 1).bit_length()))
@@ -135,8 +137,14 @@ class PolyOps:
             return t.reshape(t.shape[:1] + lead + t.shape[1:]).expand(
                 t.shape[:1] + bs + (dom.n,))
 
-        fab = dom.ntt(torch.stack([lift(a), lift(b)], 1))
-        return dom.intt(self.f.mul(fab[:, 0], fab[:, 1]))[..., :nout]
+        with prof.span("poly.mul_ntt", a):
+            with prof.span("poly.lift"):
+                ab = torch.stack([lift(a), lift(b)], 1)
+            fab = dom.ntt(ab)
+            del ab              # freed before the inverse transform
+            with prof.span("poly.pointwise"):
+                c = self.f.mul(fab[:, 0], fab[:, 1])
+            return dom.intt(c)[..., :nout]
 
     def mul(self, a, b):
         if a.shape[-1] + b.shape[-1] <= NAIVE_MAX:

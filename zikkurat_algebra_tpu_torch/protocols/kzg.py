@@ -8,7 +8,8 @@ iFFT), commitments by the G1 Pippenger MSM (kernels K1, K2, K3), the
 opening by `PolyOps` and the check by ONE two-pair `pairing_product`.
 Field elements are Montgomery limbs of Fr: x0, y0 (W,), coefficients
 and values (W, n).  The device is the setup's: `new_setup` puts it on
-the card unless the caller asks for the CPU.
+the card unless the caller asks for the CPU.  Spans (`utils.profiling`):
+`kzg.commit`, `kzg.open`, `kzg.verify`.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from ..ops.gfft import get_group_fft
 from ..ops.pairing import get_pairing
 from ..ops.poly import get_poly_ops
 from ..params import CurveParams
+from ..utils import profiling as prof
 
 
 @dataclass
@@ -99,14 +101,16 @@ def commit_poly(setup: KZGSetup, coeffs_mont: torch.Tensor) -> Point:
     if n > setup.tau_g1[0].shape[-1]:
         raise ValueError(f"{n} coefficients for a setup of "
                          f"{setup.tau_g1[0].shape[-1]} points")
-    return _msm(setup, coeffs_mont,
-                tuple(t[..., :n].contiguous() for t in setup.tau_g1))
+    with prof.span("kzg.commit", coeffs_mont):
+        return _msm(setup, coeffs_mont,
+                    tuple(t[..., :n].contiguous() for t in setup.tau_g1))
 
 
 def commit_values(setup: KZGSetup, values_mont: torch.Tensor) -> Point:
     """The commitment to the values on the domain (W, n): the MSM over the
     Lagrange SRS (kzg.py:112)."""
-    return _msm(setup, values_mont, setup.lagrange_tau_g1)
+    with prof.span("kzg.commit", values_mont):
+        return _msm(setup, values_mont, setup.lagrange_tau_g1)
 
 
 def opening_proof(setup: KZGSetup, coeffs_mont: torch.Tensor,
@@ -115,11 +119,12 @@ def opening_proof(setup: KZGSetup, coeffs_mont: torch.Tensor,
     x0 (W,) (kzg.py:118)."""
     fr = _curves(setup).fr
     po = get_poly_ops(fr)
-    y0 = po.eval_at(x0, coeffs_mont)
-    shifted = coeffs_mont.clone()
-    shifted[..., 0] = fr.sub(coeffs_mont[..., 0], y0)
-    quot, _ = po.quot_by_vanishing(shifted, 1, x0)    # exact by construction
-    return y0, commit_poly(setup, quot)
+    with prof.span("kzg.open", coeffs_mont):
+        y0 = po.eval_at(x0, coeffs_mont)
+        shifted = coeffs_mont.clone()
+        shifted[..., 0] = fr.sub(coeffs_mont[..., 0], y0)
+        quot, _ = po.quot_by_vanishing(shifted, 1, x0)  # exact by construction
+        return y0, commit_poly(setup, quot)
 
 
 def verify_proof(setup: KZGSetup, commitment: Point, proof: Point,
@@ -131,15 +136,17 @@ def verify_proof(setup: KZGSetup, commitment: Point, proof: Point,
     ck = _curves(setup)
     fr, g1 = ck.fr, ck.g1
     pk = get_pairing(setup.curve, setup.device)
-    one = tuple(c.reshape(c.shape + (1,)) for c in proof)
-    pts = tuple(torch.cat([a, b], -1)
-                for a, b in zip(one, ck.generator(1)))
-    k = fr.from_mont(torch.stack([x0, y0], 1))
-    m = g1.scalar_mul_fr_std(k, pts)
-    x0q, y0g = (tuple(c[..., i] for c in m) for i in range(2))
-    adj = g1.sub(g1.add(commitment, x0q), y0g)
-    P = g1.to_affine(tuple(torch.stack([a, b], -1)
-                           for a, b in zip(proof, g1.neg(adj))))
-    Q = tuple(torch.cat([a, b], -1) for a, b in zip(setup.tau_g2, setup.g2))
-    f12 = pk.tower.fp12
-    return f12.eq(pk.pairing_product(P, Q), f12.one(()))
+    with prof.span("kzg.verify", x0):
+        one = tuple(c.reshape(c.shape + (1,)) for c in proof)
+        pts = tuple(torch.cat([a, b], -1)
+                    for a, b in zip(one, ck.generator(1)))
+        k = fr.from_mont(torch.stack([x0, y0], 1))
+        m = g1.scalar_mul_fr_std(k, pts)
+        x0q, y0g = (tuple(c[..., i] for c in m) for i in range(2))
+        adj = g1.sub(g1.add(commitment, x0q), y0g)
+        P = g1.to_affine(tuple(torch.stack([a, b], -1)
+                               for a, b in zip(proof, g1.neg(adj))))
+        Q = tuple(torch.cat([a, b], -1)
+                  for a, b in zip(setup.tau_g2, setup.g2))
+        f12 = pk.tower.fp12
+        return f12.eq(pk.pairing_product(P, Q), f12.one(()))
