@@ -607,13 +607,16 @@ def phase_scan(ck, grp, k_limbs, pts, int_rate, device, m, sms,
 
 def counters():
     from zikkurat_algebra_tpu_torch.ops import (kernel_curve, kernel_field,
-                                                kernel_ntt, kernel_sort)
+                                                kernel_ntt, kernel_point,
+                                                kernel_sort)
 
     return {"mont_mul": kernel_field.mont_mul,
             "ntt_stage": kernel_ntt.ntt_stages,
             "bucket_scan": kernel_curve.bucket_scan,
             "bucket_scan2": kernel_curve.bucket_scan2,
-            "sort_key_val": kernel_sort.sort_key_val}
+            "sort_key_val": kernel_sort.sort_key_val,
+            "point_add": kernel_point.point_add,
+            "point_dbl": kernel_point.point_dbl}
 
 
 def reset_counts():
@@ -703,6 +706,82 @@ def phase_msm(ck, grp, k_np, pts, seeds_aff, nseed, device, block, need):
     log(f"# {grp} stage ms (mean of 3): " + ", ".join(
         f"{k} {v * 1e3 / runs:.2f}" for k, v in stages.items()))
     return launches
+
+
+POINT_OP_PRODUCTS = {"add": 14, "dbl": 9}     # csrc/curve.cuh, b3 included
+
+
+def phase_point_ops(device, int_rate, log_big=18, reps=200):
+    """The point-op kernel (csrc/point_ops.cu) at W = 12 (BLS12-381) and 8
+    (BN254): its ptxas report; at batch 2^log_big, addition and doubling
+    against `plain()`'s torch law, limb for limb; each at batch 1 and
+    2^log_big by device time (`graph_ms`), by events around the wrapper
+    (host included), against its bound (products by `POINT_OP_PRODUCTS`,
+    4 W^2 + W multiply-adds each; every coordinate read and written
+    once).  Points: the committed seeds tiled, their coordinates scaled
+    by random lambdas.  Returns the ptxas rows and the timings by
+    `<op>_W<W>_n<batch>`."""
+    import torch
+    from zikkurat_algebra_tpu_torch import params as P
+    from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
+    from zikkurat_algebra_tpu_torch.utils import build
+    from zikkurat_algebra_tpu_torch.utils.convert import load_jax_seed_points
+
+    ptxas = {}
+    if device.type == "cuda":
+        build.build(["point_ops"])
+        rep = ptxas_report(build.log_path("point_ops").read_text())
+        ptxas = ptxas_rows(rep)
+        log(f"# ptxas point_ops: {ptxas_text(rep)}")
+    rows = {}
+    for curve in (P.BLS12_381, P.BN128):
+        ck = CurveKernels(curve, device)
+        ops, f, fp = ck.g1, ck.fp, ck.fp.plain()
+        seeds = f"seeds_{curve.name.replace('-', '_')}_g1.npz"
+        x, y, _ = load_jax_seed_points(
+            os.path.join(ROOT, "bench_data", seeds), f)
+        g = torch.Generator().manual_seed(13)
+
+        def points(n):
+            i = torch.randint(0, x.shape[-1], (n,), generator=g).to(device)
+            lam = fp.rnd(g, (n,))
+            return tuple(fp.mul_list([(x[:, i], lam), (y[:, i], lam),
+                                      (f.one((n,)), lam)]))
+
+        big = 1 << log_big
+        Pb, Qb = points(big), points(big)
+        pl = ops.plain()
+        for name, got, want in (("add", ops.add(Pb, Qb), pl.add(Pb, Qb)),
+                                ("dbl", ops.dbl(Pb), pl.dbl(Pb))):
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"point_{name} W={f.W} differs from the "
+                                     "torch law")
+        for n in (1, big):
+            # batch 1 is Horner's case: its point sits in the L2 anyway
+            copies = (cold_copies(9 * 4 * f.W * n)
+                      if n > 1 and device.type == "cuda" else 1)
+            data = [(points(n), points(n)) for _ in range(copies)]
+            for name in ("add", "dbl"):
+                call = ((lambda a, b: ops.add(a, b)) if name == "add"
+                        else (lambda a, b: ops.dbl(a)))
+                nbytes = (9 if name == "add" else 6) * 4 * f.W * n
+                nops = POINT_OP_PRODUCTS[name] * (4 * f.W * f.W + f.W) * n
+                b_ms, b_by = bound(nbytes, nops, int_rate)
+                ev_ms = time_ms(lambda: call(*data[0]), reps, device)
+                dev_ms = graph_ms([lambda d=d: call(*d) for d in data], reps,
+                                  device)
+                key = f"{name}_W{f.W}_n{n}"
+                rows[key] = dict(events_us=ev_ms * 1e3,
+                                 device_us=None if dev_ms is None
+                                 else dev_ms * 1e3,
+                                 bound_us=b_ms * 1e3, bound_by=b_by)
+                log(f"# point_{name} W={f.W} batch {n}: device "
+                    f"{rows[key]['device_us']} us, events {ev_ms * 1e3:.2f} "
+                    f"us (host included), bound {b_ms * 1e3:.3f} us ({b_by}: "
+                    f"{nops} madds, {nbytes} B)"
+                    + ("" if dev_ms is None or n == 1 else
+                       f", {100 * b_ms / dev_ms:.1f}% of the bound"))
+    return dict(ptxas=ptxas, timings=rows)
 
 
 def horner(coeffs, z: int, p: int) -> int:
@@ -975,7 +1054,7 @@ def phase_gfft(ck, device, log_n, block, rng):
     reset_counts()
     F, fft_ms = timed(lambda: g.fft(ops.from_affine(aff)), device)
     B, ifft_ms = timed(lambda: g.ifft(F), device)
-    launches = read_counts(device, "group FFT", ("mont_mul",))
+    launches = read_counts(device, "group FFT", ("point_add", "point_dbl"))
     back = ops.to_affine(B)
     if not (torch.equal(back[2], aff[2]) and all(
             torch.equal(u[:, ~aff[2]], v[:, ~aff[2]])
@@ -1144,7 +1223,8 @@ def phase_kzg(ck, device, log_n, rng):
     ok = call("verify_proof", lambda: kzg.verify_proof(setup, com_p, proof,
                                                        x0, y0))
     launches = read_counts(device, "KZG", ("mont_mul", "bucket_scan",
-                                           "sort_key_val", "ntt_stage"))
+                                           "sort_key_val", "ntt_stage",
+                                           "point_add", "point_dbl"))
     bad_y = kzg.verify_proof(setup, com_p, proof, x0,
                              fr.add(y0, fr.one(())))
     _, proof1 = kzg.opening_proof(setup, coeffs, x1)
@@ -1677,7 +1757,8 @@ def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
         srs_log_n: int = 20, srs_g2_log_n: int = 12, gold_log_n: int = 20,
         pairing_batch: int = 1024, kzg_log_n: int = 12,
         bigint_log_n: int = 20, api_g2_log_n: int = 16,
-        trace_log_n: int = 16, sharded_gfft_log_n: int = 10):
+        trace_log_n: int = 16, sharded_gfft_log_n: int = 10,
+        point_log_n: int = 18):
     import torch
     from zikkurat_algebra_tpu_torch import params as P
     from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
@@ -1722,7 +1803,9 @@ def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
         device), pts, int_rate, device, block, sms)
     launches["g1"] = phase_msm(ck, "g1", k_np, pts, seeds, nseed, device,
                                block, ("mont_mul", "sort_key_val",
-                                       "bucket_scan"))
+                                       "bucket_scan", "point_add",
+                                       "point_dbl"))
+    point_ops = phase_point_ops(device, int_rate, point_log_n)
 
     # the SRS path: decompression, subgroup checks, square roots
     launches["srs"], meas["mont_mul"]["srs_path"] = phase_srs(
@@ -1766,6 +1849,15 @@ def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
         rows.append(row)
     log(card)
     print(json.dumps({"kernels": rows}))
+    point = ("point_add", "point_dbl")
+    print(json.dumps({"point_ops": dict(
+        source="zikkurat_algebra_tpu_torch/csrc/point_ops.cu",
+        replaces="the Field chains of ProjCurveOps.add / .dbl "
+                 "(zikkurat_algebra_tpu_torch/ops/curve.py)",
+        launches={k: sum(v[k] for v in launches.values()) for k in point},
+        launches_by_path={p: {k: v[k] for k in point}
+                          for p, v in launches.items()},
+        **point_ops)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu" if device.type == "cuda" else "cpu",
         "kind": (torch.cuda.get_device_name(0) if device.type == "cuda"

@@ -552,6 +552,7 @@ def main() -> int:
     import chip_smoke as cs
     from zikkurat_algebra_tpu_torch import params as P
     from zikkurat_algebra_tpu_torch.ops import kernel_curve, kernel_sort
+    from zikkurat_algebra_tpu_torch.ops import limbs as lb
     from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
     from zikkurat_algebra_tpu_torch.utils import build
 
@@ -629,8 +630,8 @@ def main() -> int:
     if "K2" in kernels:
         setups["K2"] = scan_setup(
             "g1", "zk_bucket_scan", kernel_curve._ARGTYPES,
-            lambda ops: (kernel_curve._host_words(f.p, f.W), f.n0,
-                         kernel_curve._host_words(f.R % f.p, f.W), ops.b3))
+            lambda ops: (lb.host_words(f.p, f.W), f.n0,
+                         lb.host_words(f.R % f.p, f.W), ops.b3))
     if "K3" in kernels:
         _, nbuckets, _, _, _, k_limbs, c = path("g1")
         keys = ck.msm("g1").digits(k_limbs, c, m).abs()

@@ -24,7 +24,8 @@ from zikkurat_algebra_tpu.ops.curve import get_curves
 from zikkurat_algebra_tpu_torch import params as P
 from zikkurat_algebra_tpu_torch.errors import DimensionError, UnsupportedError
 from zikkurat_algebra_tpu_torch.ops import (kernel_curve, kernel_field,
-                                            kernel_ntt, kernel_sort, msm)
+                                            kernel_ntt, kernel_point,
+                                            kernel_sort, msm)
 from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
 from zikkurat_algebra_tpu_torch.utils import profiling
 
@@ -264,7 +265,9 @@ def test_span_launch_deltas_add_up(monkeypatch):
     kernels = dict(zip(profiling.LAUNCHES, (
         kernel_field.mont_mul, kernel_curve.bucket_scan,
         kernel_sort.sort_key_val, kernel_ntt.ntt_stages,
-        kernel_curve.bucket_scan2)))
+        kernel_curve.bucket_scan2, kernel_point.point_add,
+        kernel_point.point_dbl)))
+    assert list(kernels) == list(profiling.LAUNCHES)
     for fn in kernels.values():
         monkeypatch.setattr(fn, "launches", fn.launches)
     before = {n: fn.launches for n, fn in kernels.items()}
@@ -280,12 +283,13 @@ def test_span_launch_deltas_add_up(monkeypatch):
                 bump(mont_mul=3, bucket_scan=1)
             bump(sort_key_val=1)
             with profiling.span("outer.b"):
-                bump(ntt_stages=2, bucket_scan2=1, mont_mul=1)
+                bump(ntt_stages=2, bucket_scan2=1, mont_mul=1, point_add=3,
+                     point_dbl=5)
     tot = profiling.totals()
     change = {n: fn.launches - before[n] for n, fn in kernels.items()}
     assert tot["outer"]["launches"] == change == dict(
         mont_mul=4, bucket_scan=1, sort_key_val=1, ntt_stages=2,
-        bucket_scan2=1)
+        bucket_scan2=1, point_add=3, point_dbl=5)
     a, b = tot["outer.a"]["launches"], tot["outer.b"]["launches"]
     assert {n: a[n] + b[n] for n in change} == dict(change, sort_key_val=0)
     assert tot["outer"]["calls"] == 1

@@ -7,10 +7,12 @@ the JAX package, so both give the same X, Y, Z as field values.  The
 coordinate field is `Field` (G1, elements (W, *batch)) or `QuadExt`
 (G2, elements (W, 2, *batch)); the code only reads its `struct_ndim`.
 Independent products go through `mul_list` (one K1 launch) and
-independent sums through `add_list` / `sub_list`.  `scalar_mul_digits`
-is the windowed scalar multiplication the group FFT (ops/gfft.py) uses;
-`scalar_mul_static` the one for a scalar known on the host (subgroup
-checks, cofactor clearing).
+independent sums through `add_list` / `sub_list`.  On CUDA tensors of G1
+`add` and `dbl` are instead one launch each of `csrc/point_ops.cu`
+(`kernel_point`), which gives the same limbs (`_fused` says where).
+`scalar_mul_digits` is the windowed scalar multiplication the group FFT
+(ops/gfft.py) uses; `scalar_mul_static` the one for a scalar known on
+the host (subgroup checks, cofactor clearing).
 
 Subgroup membership: on the curve suffices for a cofactor of 1 (BN128
 G1); with a GLV endomorphism phi(x, y) = (beta x, y) it is on the curve
@@ -34,7 +36,7 @@ from ..errors import UnsupportedError
 from ..oracle.groups import g1_group, g2_group
 from ..params import CurveParams
 from ..utils import profiling as prof
-from . import limbs as lb
+from . import kernel_point, limbs as lb
 from .field import resolve_device
 from .tower import get_tower
 
@@ -107,8 +109,23 @@ class ProjCurveOps:
     def sub(self, P: Point, Q: Point) -> Point:
         return self.add(P, self.neg(Q))
 
+    def _fused(self, device: torch.device) -> bool:
+        """Whether a point op on coordinates on `device` is one launch of
+        `csrc/point_ops.cu`: G1 (Fp) coordinates on a CUDA device, at a
+        width the kernel takes, over the kernel field.  G2, CPU tensors
+        and `plain()` (its products on the plain version) run the torch
+        law."""
+        f = self.f
+        return (device.type == "cuda" and f.struct_ndim == 1
+                and f.W in kernel_point.WIDTHS
+                and f.on_kernel)
+
     def add(self, P: Point, Q: Point) -> Point:
-        """Complete projective addition, RCB15 algorithm 7 (a = 0)."""
+        """Complete projective addition, RCB15 algorithm 7 (a = 0): one
+        `kernel_point.point_add` launch where `_fused` holds, else the
+        torch law below."""
+        if self._fused(P[0].device):
+            return kernel_point.point_add(self, P, Q)
         f = self.f
         X1, Y1, Z1 = P
         X2, Y2, Z2 = Q
@@ -132,7 +149,11 @@ class ProjCurveOps:
         return (f.sub(p0, p1), Y, Z)
 
     def dbl(self, P: Point) -> Point:
-        """Complete projective doubling, RCB15 algorithm 9 (a = 0)."""
+        """Complete projective doubling, RCB15 algorithm 9 (a = 0): one
+        `kernel_point.point_dbl` launch where `_fused` holds, else the
+        torch law below."""
+        if self._fused(P[0].device):
+            return kernel_point.point_dbl(self, P)
         f = self.f
         X, Y, Z = P
         t0, t1, t2, xy = f.mul_list([(Y, Y), (Y, Z), (Z, Z), (X, Y)])

@@ -83,6 +83,11 @@ class Field:
         g._mont_mul = kernel_field.mont_mul_plain
         return g
 
+    @property
+    def on_kernel(self) -> bool:
+        """Whether products may run K1 (False for a `plain()` view)."""
+        return self._mont_mul is not kernel_field.mont_mul_plain
+
     # -- constants ---------------------------------------------------------
     def const(self, value: int, batch_shape=()) -> torch.Tensor:
         """Montgomery form of an int, broadcast to (W, *batch_shape).  The

@@ -43,6 +43,7 @@ import ctypes
 import torch
 
 from ..utils import build
+from . import limbs as lb
 from .curve import ProjCurveOps
 
 
@@ -105,13 +106,6 @@ _ARGTYPES = [ctypes.c_void_p] * 12 + [
 ]
 
 
-def _host_words(v: int, W: int):
-    """v as W 32-bit words in host memory, least significant first (K2
-    and K4 take their field constants as kernel parameters)."""
-    return (ctypes.c_uint32 * W)(*((v >> (32 * i)) & 0xFFFFFFFF
-                                   for i in range(W)))
-
-
 def _outputs(ops: ProjCurveOps, sd, m: int, nbuckets: int):
     """Buckets at infinity and uninitialised trailers on sd's device."""
     nwin, n = sd.shape
@@ -153,7 +147,8 @@ def bucket_scan(ops: ProjCurveOps, x, y, inf, sd, idx, m: int,
     fn = build.load("block_scan", "zk_bucket_scan", _ARGTYPES)
     rc = fn(
         *(t.data_ptr() for t in tensors + buckets + S),
-        _host_words(f.p, f.W), f.n0, _host_words(f.R % f.p, f.W), ops.b3,
+        lb.host_words(f.p, f.W), f.n0, lb.host_words(f.R % f.p, f.W),
+        ops.b3,
         f.W, nwin, n, x.shape[1], m, nbuckets + 1,
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -199,8 +194,8 @@ def _fp2_consts(fp, b3, qnr: int):
     then c1, Montgomery form) and qnr."""
     W = fp.W
     b3m = [c * fp.R % fp.p for c in b3]
-    return (_host_words(fp.p, W), fp.n0, _host_words(fp.R % fp.p, W),
-            _host_words(b3m[0] | b3m[1] << (32 * W), 2 * W), qnr)
+    return (lb.host_words(fp.p, W), fp.n0, lb.host_words(fp.R % fp.p, W),
+            lb.host_words(b3m[0] | b3m[1] << (32 * W), 2 * W), qnr)
 
 
 def bucket_scan2(ops: ProjCurveOps, x, y, inf, sd, idx, m: int,

@@ -16,6 +16,7 @@ W columns as ((G << 1) + P) ^ P, one integer addition per element.
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 from typing import List, Sequence, Union
 
@@ -44,6 +45,12 @@ def ints_to_limbs(values: Union[int, Sequence[int]], W: int) -> np.ndarray:
     buf = b"".join(v.to_bytes(4 * W, "little") for v in vals)
     words = np.frombuffer(buf, dtype="<u4").reshape(len(vals), W)
     return np.ascontiguousarray(words.T).view(np.int32)
+
+
+def host_words(v: int, W: int):
+    """v as W 32-bit words in host memory, least significant first: the
+    field constants the kernels take as parameters (ctypes array)."""
+    return (ctypes.c_uint32 * W)(*((v >> (32 * i)) & M32 for i in range(W)))
 
 
 def limbs_to_ints(limbs) -> Union[int, List[int]]:

@@ -21,7 +21,8 @@ reads `ops.f.struct_ndim` leading axes, one for Fp (G1), two for Fp2
 7. `_weighted_bucket_sum`: sum_b b * bucket_b per window;
 8. Horner: res = 2^c res + W_w from the top window down.
 
-Every field product inside goes through kernel K1.
+On the card every G1 point addition and doubling is one launch of
+`csrc/point_ops.cu`; every other field product goes through kernel K1.
 
 Each stage is a span of `utils.profiling` (`msm.digits` ... `msm.horner`
 inside `msm.std`); `stage_seconds` collects their device intervals.

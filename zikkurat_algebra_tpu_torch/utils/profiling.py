@@ -46,7 +46,7 @@ import torch.autograd.profiler as _ap
 TRACE_FILE = "trace.json"
 # the port's exact launch counters (`<kernel wrapper>.launches`)
 LAUNCHES = ("mont_mul", "bucket_scan", "sort_key_val", "ntt_stages",
-            "bucket_scan2")
+            "bucket_scan2", "point_add", "point_dbl")
 MAX_RECORDS = 1 << 16       # records kept for `records()`
 MAX_PENDING = 1 << 12       # unresolved CUDA spans before a sweep
 
@@ -176,11 +176,13 @@ _NULL = contextlib.nullcontext()
 def _launch_counts() -> tuple:
     global _counters
     if _counters is None:
-        from ..ops import kernel_curve, kernel_field, kernel_ntt, kernel_sort
+        from ..ops import (kernel_curve, kernel_field, kernel_ntt,
+                           kernel_point, kernel_sort)
 
         _counters = (kernel_field.mont_mul, kernel_curve.bucket_scan,
                      kernel_sort.sort_key_val, kernel_ntt.ntt_stages,
-                     kernel_curve.bucket_scan2)
+                     kernel_curve.bucket_scan2, kernel_point.point_add,
+                     kernel_point.point_dbl)
     return tuple(k.launches for k in _counters)
 
 
