@@ -90,6 +90,12 @@ class CurveAPI:
     def decompress_g1(self, x, flags):
         return self.curves.decompress_g1(x, flags)
 
+    def g1_to_bytes48(self, aff):
+        return self.curves.g1_to_bytes48(aff)
+
+    def g1_from_bytes48(self, data):
+        return self.curves.g1_from_bytes48(data)
+
     def compress_g2(self, aff):
         return self.curves.compress_g2(aff)
 

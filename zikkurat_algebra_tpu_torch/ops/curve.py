@@ -22,6 +22,8 @@ G1); otherwise on the curve and [r] P = infinity (G2).  Compressed
 points (`CurveKernels.compress_g1` / `_g2`) are the canonical Montgomery
 limbs of x and int32 flags: bit 0 the parity of y in standard form (of
 its c0, or of c1 where c0 = 0, over Fp2), bit 1 infinity (x = 0 there).
+`g1_to_bytes48` / `g1_from_bytes48` are the ZCash 48-byte encoding of
+BLS12-381 G1 (the commitments and proofs of EIP-4844).
 """
 
 from __future__ import annotations
@@ -510,6 +512,60 @@ class CurveKernels:
                                               b.expand(x.shape)))
         y = f2.select(self._parity_fp2(root) == par, root, f2.neg(root))
         return (x, y, inf), ok | inf
+
+    # -- the ZCash 48-byte encoding of G1 (EIP-4844's commitments, proofs) ------
+    G1_BYTES = 48
+
+    def _half_p(self) -> int:
+        """(p + 1) / 2: y is the larger of y and p - y iff y >= it.  Raises
+        where p leaves the encoding no three flag bits."""
+        p = self.curve.fp.p
+        if 8 * self.G1_BYTES - p.bit_length() < 3:
+            raise UnsupportedError(f"{self.curve.name}: no 48-byte encoding")
+        return (p + 1) // 2
+
+    def g1_to_bytes48(self, A: AffBatch) -> torch.Tensor:
+        """Affine G1 batch -> (*batch, 48) uint8, the ZCash compressed
+        encoding: x big-endian (0 at infinity), and in the first byte the
+        flags 0x80 (compressed), 0x40 (infinity) and 0x20 (y is the larger
+        of y and p - y).  One product for both coordinates."""
+        x, y, inf = A
+        half = self._half_p()
+        fp = self.fp
+        xs, ys = fp.from_mont(torch.stack([x, y], 1)).unbind(1)
+        big = ~lb.below(ys, half) & ~inf
+        out = lb.limbs_to_be_bytes(fp.select(inf, torch.zeros_like(xs), xs),
+                                   self.G1_BYTES)
+        u8 = torch.uint8
+        out[..., 0] |= 0x80 | (inf.to(u8) << 6) | (big.to(u8) << 5)
+        return out
+
+    def g1_from_bytes48(self, data: torch.Tensor):
+        """Inverse of `g1_to_bytes48` (py_ecc's decompress_G1), on the
+        device: (*batch, 48) uint8 -> (affine batch, valid).  valid is
+        False where the compressed flag is clear, the infinity flag
+        disagrees with x = 0, infinity carries the sign flag, x >= p, or
+        x^3 + b is no square; such entries decode to infinity.  The
+        subgroup is not checked (`g1.is_in_subgroup`)."""
+        half = self._half_p()
+        fp = self.fp
+        data = data.to(self.device)
+        top = data[..., 0].to(torch.int32)
+        c, b, a = (((top >> s) & 1) == 1 for s in (7, 6, 5))
+        body = data.clone()
+        body[..., 0] &= 0x1F
+        xs = lb.be_bytes_to_limbs(body, fp.W)
+        ok = c & (b == fp.is_zero(xs)) & ~(b & a)
+        fin = ok & ~b & lb.below(xs, fp.p)
+        x = fp.to_mont(fp.select(fin, xs, torch.zeros_like(xs)))
+        rhs = fp.add(fp.mul(fp.sqr(x), x), lb.bcast(self._b1, x.ndim))
+        root, square = fp.sqrt(rhs)
+        big = ~lb.below(fp.from_mont(root), half)
+        y = fp.select(big == a, root, fp.neg(root))
+        fin = fin & square
+        zero = torch.zeros_like(x)
+        return ((fp.select(fin, x, zero), fp.select(fin, y, zero), ~fin),
+                (ok & b) | fin)
 
     @staticmethod
     def _encode(enc, zero, pts, device) -> AffBatch:

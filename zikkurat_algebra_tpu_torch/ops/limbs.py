@@ -144,6 +144,38 @@ def _carry_once(x: torch.Tensor) -> torch.Tensor:
     return (x & M32) + torch.cat([torch.zeros_like(hi[:1]), hi[:-1]], 0)
 
 
+def below(a: torch.Tensor, value: int) -> torch.Tensor:
+    """Whether each value of the limb planes (W, *batch) is below the
+    int `value` (< 2^(32 W)): a - value borrows."""
+    v = torch.from_numpy(ints_to_limbs(value, a.shape[0]).astype(np.int64)
+                         & M32).to(a.device)
+    _, borrow = sub_borrow(to64(a) - bcast(v, a.ndim))
+    return borrow.bool()
+
+
+def limbs_to_be_bytes(a: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """Limb planes (W, *batch) -> (*batch, nbytes) uint8, each value
+    big-endian in its last nbytes bytes (the bytes above must be zero)."""
+    W = a.shape[0]
+    sh = torch.tensor([24, 16, 8, 0], dtype=I64, device=a.device).view(
+        (1, 4) + (1,) * (a.ndim - 1))
+    b = ((to64(a).unsqueeze(1) >> sh) & 0xFF).flip(0)   # top limb first
+    b = b.reshape((4 * W,) + a.shape[1:])[4 * W - nbytes:]
+    return b.movedim(0, -1).to(torch.uint8).contiguous()
+
+
+def be_bytes_to_limbs(data: torch.Tensor, W: int) -> torch.Tensor:
+    """(*batch, nbytes) uint8 big-endian values, nbytes <= 4 W -> their
+    limb planes (W, *batch) int32, on data's device."""
+    x = data.to(I64)
+    pad = 4 * W - x.shape[-1]
+    if pad:
+        x = torch.cat([x.new_zeros(x.shape[:-1] + (pad,)), x], -1)
+    x = x.reshape(x.shape[:-1] + (W, 4))                 # top limb first
+    w = (x[..., 0] << 24) | (x[..., 1] << 16) | (x[..., 2] << 8) | x[..., 3]
+    return to32(w.flip(-1).movedim(-1, 0)).contiguous()
+
+
 # -- modular add / sub / neg on canonical values -----------------------------
 #
 # a + b and a - b each have two candidates, the plain value and the value

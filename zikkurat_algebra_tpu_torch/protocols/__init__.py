@@ -1,2 +1,2 @@
 """Protocols over the port's kernels: the KZG commitment and its SRS
-files."""
+files, and the EIP-4844 blob prover."""

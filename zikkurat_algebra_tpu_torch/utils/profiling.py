@@ -13,6 +13,8 @@ zikkurat_algebra_tpu/utils/profiling.py).
   kernels' launch counters (`LAUNCHES`).  A record taken under a
   profiler goes to no registry (the profiler slows the host).
 * `recording()`  - the operator's switch for the registry.
+* `count(name, n)` - a named counter of the registry (blobs proven, ...),
+  added to while `recording()` is on; `counts()` reads them.
 * `totals()`     - calls, host seconds, device seconds and launches per
   span name, after resolving the pending events (one wait);
   `records()` the last `MAX_RECORDS` records; `reset()`.
@@ -170,6 +172,7 @@ _records: collections.deque = collections.deque(maxlen=MAX_RECORDS)
 _pending: List[SpanRecord] = []
 _totals = Counters()
 _counters: Optional[tuple] = None
+_counts: Dict[str, int] = {}
 _NULL = contextlib.nullcontext()
 
 
@@ -306,6 +309,17 @@ def recording():
         _recording -= 1
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add n to the registry's counter `name` while recording is on."""
+    if _recording:
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def counts() -> Dict[str, int]:
+    """The registry's counters since `reset()`."""
+    return dict(_counts)
+
+
 def stages(out: Optional[Dict[str, float]], names: Mapping[str, str]):
     """With `out` None, nothing.  Else the body runs under recording, and
     after it each span named in `names` adds its device seconds to
@@ -353,9 +367,10 @@ def records() -> List[SpanRecord]:
 
 
 def reset() -> None:
-    """Forget every record and total."""
+    """Forget every record, total and counter."""
     global _last_op, _pending
     _records.clear()
+    _counts.clear()
     _pending = []
     _totals.clear()
     _last_op = 0
