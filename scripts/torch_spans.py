@@ -3,16 +3,19 @@
     python3 scripts/torch_spans.py trace [--seed N] [--msms 3] [--products 20]
     python3 scripts/torch_spans.py cost --workload CELL --seed N --seconds S --recording 0|1
 
-`trace` sets up the benchmark's two prover cells (`prover2p20-g1msm`: a
+`trace` sets up the benchmark's three cells (`prover2p20-g1msm`: a
 2^20 G1 MSM; `prover2p20-polymul`: a product of two 2^19-coefficient
-polynomials), warms them up, and then
-- runs `--msms` MSMs and `--products` products under
-  `profiling.recording()`: per span name, the calls, the host time and
-  the device interval (CUDA events) per call, and the launches;
-- runs one MSM and `--products` products under `profiling.trace`: the
-  device's busy time, the kernels by summed device time, and every idle
-  gap of the device charged to the innermost `zk.` span the host had
-  open at the gap's middle ("other" where none was).
+polynomials; `blob4096-prove`: commitments and proofs of 6 blobs),
+warms them up, and then
+- runs `--msms` MSMs, `--products` products and `BLOB_OPS` blob
+  operations under `profiling.recording()`: per span name, the calls,
+  the host time and the device interval (CUDA events) per call, and the
+  launches; the counters of `profiling.counts()`;
+- runs one MSM, `--products` products and one blob operation under
+  `profiling.trace`: the device's busy time, the kernels by summed
+  device time, and every idle gap of the device charged to the
+  innermost `zk.` span the host had open at the gap's middle ("other"
+  where none was).
 `cost` runs one cell's window as the benchmark does (`zkbench/run.py
 --trace 0`), with `profiling.recording()` around the whole run or not,
 and prints the result object: the cost of recording when it is on.
@@ -35,6 +38,9 @@ from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+
+
+BLOB_OPS = 4            # blob operations of 6 blobs under recording()
 
 
 def log(s: str) -> None:
@@ -69,15 +75,19 @@ def trace(a) -> dict:
     torch.cuda.set_device(dev)
     msm = setup("prover2p20-g1msm", a.seed, dev)
     poly = setup("prover2p20-polymul", a.seed, dev)
+    blob = setup("blob4096-prove", a.seed, dev)
     k = [msm.inputs(j) for j in range(a.msms)]
     jk = [poly.inputs(j) for j in range(a.products)]
+    bk = [blob.inputs(j) for j in range(BLOB_OPS)]
     msm.run(k[0], None)
     for x in jk[:3]:
         poly.run(x, None)
+    blob.run(bk[0], None)
     torch.cuda.synchronize()
     out = {}
 
-    for name, drv, args in (("msm", msm, k), ("polymul", poly, jk)):
+    for name, drv, args in (("msm", msm, k), ("polymul", poly, jk),
+                            ("blob", blob, bk)):
         profiling.reset()
         wall = []
         for x in args:
@@ -89,10 +99,12 @@ def trace(a) -> dict:
             wall.append(time.perf_counter() - t)
         out[f"{name}_spans"] = dict(
             wall_ms=[1e3 * w for w in wall],
-            spans=span_table(profiling.totals()))
+            spans=span_table(profiling.totals()),
+            counts=profiling.counts())
         profiling.reset()
 
-    for name, drv, args in (("msm", msm, k[:1]), ("polymul", poly, jk)):
+    for name, drv, args in (("msm", msm, k[:1]), ("polymul", poly, jk),
+                            ("blob", blob, bk[:1])):
         torch.cuda.synchronize()
         with profiling.trace(a.trace_dir) as prof:
             t = time.perf_counter()

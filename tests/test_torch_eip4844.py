@@ -60,26 +60,31 @@ def test_setup_is_bit_reversed_once(fixed_base):
                                                  setup.lagrange_brp))
 
 
-@pytest.mark.parametrize("n, seed", [(16, 1), (64, 2)])
-def test_commitment_and_proof_bytes(fixed_base, n, seed):
-    """prove_blobs (blob_to_kzg_commitments, compute_blob_kzg_proofs)
-    gives the reference's commitment and blob proof byte for byte, and
-    counts the blob under recording."""
+@pytest.mark.parametrize("n, seed, B", [pytest.param(16, 1, 3, id="16-1"),
+                                         pytest.param(64, 2, 1, id="64-2")])
+def test_commitment_and_proof_bytes(fixed_base, n, seed, B):
+    """prove_blobs (blob_to_kzg_commitments, compute_blob_kzg_proofs) of
+    B blobs gives the reference's commitments and blob proofs byte for
+    byte in one msm_std for the commitments and one for the proofs, each
+    over the B scalar vectors, and counts the blobs under recording."""
     rng = random.Random(seed)
     setup = make_setup(n, fixed_base)
-    blob = rand_blob(rng, n)
+    blobs = [rand_blob(rng, n) for _ in range(B)]
     profiling.reset()
     with profiling.recording():
-        cms, proofs = eip4844.prove_blobs(setup, [blob])
-    assert profiling.counts() == {"blobs": 1, "blob_z_in_domain": 0}
+        cms, proofs = eip4844.prove_blobs(setup, blobs)
+    assert profiling.counts() == {"blobs": B, "blob_z_in_domain": 0,
+                                  "msm_scalar_sets": 2 * B}
     spans = profiling.totals()
     assert all(spans[s]["calls"] == 1 for s in (
         "kzg.blob_prove", "kzg.blob_commit", "kzg.blob_challenge",
         "kzg.blob_open"))
+    assert spans["msm.std"]["calls"] == 2
     profiling.reset()
-    want = ref.Prover(TAU, n, fixed_base=fixed_base).prove(blob)
-    assert cms.shape == proofs.shape == (1, 48)
-    assert (bytes(cms[0].numpy()), bytes(proofs[0].numpy())) == want
+    prover = ref.Prover(TAU, n, fixed_base=fixed_base)
+    assert cms.shape == proofs.shape == (B, 48)
+    assert [(bytes(c.numpy()), bytes(p.numpy()))
+            for c, p in zip(cms, proofs)] == [prover.prove(b) for b in blobs]
 
 
 def test_kzg_proof_within_domain(fixed_base):
@@ -94,7 +99,8 @@ def test_kzg_proof_within_domain(fixed_base):
     profiling.reset()
     with profiling.recording():
         proof, y = eip4844.compute_kzg_proof(setup, blob, z.to_bytes(32, "big"))
-    assert profiling.counts() == {"blob_z_in_domain": 1}
+    assert profiling.counts() == {"blob_z_in_domain": 1,
+                                  "msm_scalar_sets": 1}
     profiling.reset()
     want, want_y = ref.Prover(TAU, n, fixed_base=fixed_base).kzg_proof(poly, z)
     assert int.from_bytes(y, "big") == want_y == poly[5]
@@ -183,14 +189,22 @@ def card():
 @pytest.mark.gpu
 def test_blobs_on_the_card(card, fixed_base):
     """On the card (K1, K2, K3, the point kernels): three blobs of 64
-    elements proven as a batch, and a proof at a root, byte for byte; the
-    48-byte encoding of the commitments read back."""
+    elements proven as a batch in two msm_std calls (K2 and K3 twice),
+    and a proof at a root, byte for byte; the 48-byte encoding of the
+    commitments read back."""
     n = 64
     pts = fixed_base.mul_many(bls.lagrange_at(TAU, n))
     setup = eip4844.load_setup(pts, device="cuda")
     rng = random.Random(8)
     blobs = [rand_blob(rng, n) for _ in range(3)]
-    cms, proofs = eip4844.prove_blobs(setup, blobs)
+    profiling.reset()
+    with profiling.recording():
+        cms, proofs = eip4844.prove_blobs(setup, blobs)
+    launches = profiling.totals()["kzg.blob_prove"]["launches"]
+    assert profiling.totals()["msm.std"]["calls"] == 2
+    assert profiling.counts()["msm_scalar_sets"] == 6
+    assert launches["bucket_scan"] == launches["sort_key_val"] == 2
+    profiling.reset()
     prover = ref.Prover(TAU, n, fixed_base=fixed_base)
     assert [(bytes(c.cpu().numpy()), bytes(p.cpu().numpy()))
             for c, p in zip(cms, proofs)] == [prover.prove(b) for b in blobs]

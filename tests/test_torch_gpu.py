@@ -606,6 +606,35 @@ def test_curve_api_on_card_launches_kernels(cuda_device):
         cpu.fr.encode(vals)))
 
 
+def _tiled_seed_points(ck, n):
+    """The 1024 seed G1 points of `bench_data/` tiled to n."""
+    seeds = load_jax_seed_points(SEEDS_G1, ck.fp)
+    reps = -(-n // seeds[0].shape[-1])
+    return tuple(t.repeat(*([1] * (t.ndim - 1)), reps)[..., :n].contiguous()
+                 for t in seeds)
+
+
+def _scalars(shape, seed, device):
+    """Random canonical scalar limbs (8, *shape) below r."""
+    g = torch.Generator().manual_seed(seed)
+    k = torch.randint(-2**31, 2**31 - 1, (8,) + shape, generator=g,
+                      dtype=torch.int32)
+    k[7] &= 0x3FFFFFFF
+    return k.to(device)
+
+
+def _msm_launches(fn):
+    """The result of fn() and the launches inside its msm.std spans."""
+    from zikkurat_algebra_tpu_torch.utils import profiling
+
+    profiling.reset()
+    with profiling.recording():
+        res = fn()
+    tot = profiling.totals()
+    profiling.reset()
+    return res, tot["msm.std"]["calls"], tot["msm.std"]["launches"]
+
+
 @pytest.mark.gpu
 def test_msm_stage_seconds_on_card_one_wait(cuda_device, monkeypatch):
     """A 2^16 G1 MSM with stage_seconds waits for the card at most once
@@ -619,16 +648,9 @@ def test_msm_stage_seconds_on_card_one_wait(cuda_device, monkeypatch):
     from zikkurat_algebra_tpu_torch.utils import profiling
 
     ck = CurveKernels(P.BLS12_381, device=cuda_device)
-    seeds = load_jax_seed_points(SEEDS_G1, ck.fp)
     n = 1 << 16
-    reps = -(-n // seeds[0].shape[-1])
-    pts = tuple(t.repeat(*([1] * (t.ndim - 1)), reps)[..., :n].contiguous()
-                for t in seeds)
-    g = torch.Generator().manual_seed(61)
-    k = torch.randint(-2**31, 2**31 - 1, (8, n), generator=g,
-                      dtype=torch.int32)
-    k[7] &= 0x3FFFFFFF                                 # below r
-    k = k.to(cuda_device)
+    pts = _tiled_seed_points(ck, n)
+    k = _scalars((n,), 61, cuda_device)
     m = ck.msm("g1")
     plain = ck.decode_g1(ck.g1.to_affine(m.msm_std(k, pts)))
     waits = []
@@ -655,6 +677,51 @@ def test_msm_stage_seconds_on_card_one_wait(cuda_device, monkeypatch):
     assert {c: sum(tot[f"msm.{s}"]["launches"][c] for s in STAGES)
             for c in top} == top
     profiling.reset()
+
+
+@pytest.mark.gpu
+def test_msm_batched_scalars_on_card(cuda_device):
+    """Six scalar vectors over 4096 shared points (the blob prover's
+    batch) in one msm_std equal six 2-D calls point for point after
+    to_affine; the batched call launches K2 and K3 once each and as
+    many point additions and doublings as one 2-D call."""
+    ck = CurveKernels(P.BLS12_381, device=cuda_device)
+    n, B = 4096, 6
+    pts = _tiled_seed_points(ck, n)
+    k = _scalars((B, n), 63, cuda_device)
+    m = ck.msm("g1")
+    res, calls, batched = _msm_launches(lambda: m.msm_std(k, pts, 8))
+    assert calls == 1 and all(t.shape == (ck.fp.W, B) for t in res)
+    got = ck.decode_g1(ck.g1.to_affine(res))
+    singles = []
+    for b in range(B):
+        r, _, one = _msm_launches(lambda: m.msm_std(k[:, b].contiguous(),
+                                                    pts, 8))
+        singles.append(ck.decode_g1(ck.g1.to_affine(
+            tuple(t.unsqueeze(-1) for t in r)))[0])
+    assert got == singles
+    assert batched["bucket_scan"] == one["bucket_scan"] == 1
+    assert batched["sort_key_val"] == one["sort_key_val"] == 1
+    assert batched["point_add"] == one["point_add"] > 0
+    assert batched["point_dbl"] == one["point_dbl"] > 0
+    assert batched["mont_mul"] == one["mont_mul"] == 0
+
+
+@pytest.mark.gpu
+def test_msm_2p20_launch_counts_on_card(cuda_device):
+    """A 2-D G1 MSM of 2^20 points at c = 15 launches K3 and K2 once,
+    the point kernels 71 and 275 times and no K1 inside msm.std."""
+    ck = CurveKernels(P.BLS12_381, device=cuda_device)
+    n = 1 << 20
+    pts = _tiled_seed_points(ck, n)
+    k = _scalars((n,), 64, cuda_device)
+    _, calls, launches = _msm_launches(lambda: ck.msm("g1").msm_std(k, pts))
+    assert calls == 1
+    assert {c: launches[c] for c in ("sort_key_val", "bucket_scan",
+                                     "point_add", "point_dbl",
+                                     "mont_mul")} == dict(
+        sort_key_val=1, bucket_scan=1, point_add=71, point_dbl=275,
+        mont_mul=0)
 
 
 @pytest.mark.gpu

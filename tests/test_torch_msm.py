@@ -141,6 +141,50 @@ def test_msm_zero_scalars_and_dimension_error(ck):
         ck.msm("g1").msm_std(ck.fr.encode([1] * 3, mont=False), A, 2, 4)
 
 
+@pytest.fixture(scope="module")
+def batch_case():
+    """BN128 G1 (W = 8, the cheaper law on the CPU): the points
+    P_i = (i + 1) G, i < 64, three scalar vectors (all zero, all r - 1,
+    random) and the oracle's sums [sum_i k_i (i + 1)] G."""
+    ck = CurveKernels(P.BN128, device="cpu")
+    og = ck.oracle_g1
+    n = 64
+    pts = [og.gen]
+    for _ in range(n - 1):
+        pts.append(og.add(pts[-1], og.gen))
+    r = random.Random(71)
+    ks = [[0] * n, [og.r - 1] * n, [r.randrange(og.r) for _ in range(n)]]
+    want = [og.scalar_mul(sum(k * (i + 1) for i, k in enumerate(v)) % og.r,
+                          og.gen) for v in ks]
+    k = torch.stack([ck.fr.encode(v, mont=False) for v in ks], 1)
+    return ck, ck.msm("g1"), k, ck.encode_g1(pts), want
+
+
+@pytest.mark.parametrize("case", ["batch3", "batch1", "points_mismatch"])
+def test_msm_std_batched_scalars(batch_case, case):
+    """Scalars (Wr, B, N) run B MSMs over the same points in one pass
+    (rows of (vector, window)): a projective point of batch (B,), each
+    equal after to_affine to the oracle's sum, which the 2-D call is
+    held to (test_msm_matches_jax); points of another length than N, and
+    scalars cut short, raise.  c = 8."""
+    ck, m, k, A, want = batch_case
+    if case == "batch3":
+        res = m.msm_std(k, A, 8, 16)
+        assert all(t.shape == (ck.fp.W, 3) for t in res)
+        got = ck.decode_g1(ck.g1.to_affine(res))
+        assert got == want
+        assert got[0] is None
+    elif case == "batch1":
+        res = m.msm_std(k[:, 2:], A, 8, 16)
+        assert all(t.shape == (ck.fp.W, 1) for t in res)
+        assert ck.decode_g1(ck.g1.to_affine(res)) == want[2:]
+    else:
+        with pytest.raises(DimensionError):
+            m.msm_std(k, tuple(t[..., :-1] for t in A), 8, 16)
+        with pytest.raises(DimensionError):
+            m.msm_std(k[:, :, :-1], A, 8, 16)
+
+
 def test_window_size_matches_jax():
     for n in (1, 2, 33, 1 << 10, 1 << 16, 1 << 20, 1 << 24):
         assert msm.window_size(n) == jmsm.window_size(n)

@@ -3,29 +3,39 @@
 The torch counterpart of zikkurat_algebra_tpu/ops/msm.py::MSM.msm_std and
 CurveMSM.msm_mont.  Every stage is generic over the coordinate field: it
 reads `ops.f.struct_ndim` leading axes, one for Fp (G1), two for Fp2
-(G2).  The stages, in order:
+(G2).
+
+`msm_std` takes scalars (Wr, N) for one MSM, or (Wr, B, N) for B MSMs
+over the same N points, which run as one: every stage below works on
+rows, and a row is one (scalar vector, window) pair, ordered by scalar
+vector, then window (B nwin rows; nwin rows for (Wr, N)).  The stages,
+in order:
 
 1. signed window digits (`digits_from_limbs`, `signed_digits`): c-bit
-   windows made balanced, |digit| <= 2^(c-1), plus one carry window;
+   windows made balanced, |digit| <= 2^(c-1), plus one carry window,
+   laid out as the rows;
 2. padding to a multiple of the block with digit = nbuckets (a dump
    slot) and points at infinity;
 3. grouping: kernel K3 (`kernel_sort.sort_key_val`), a stable sort of
-   |digit| along each window row carrying the position index;
+   |digit| along each row carrying the position index, one launch for
+   all rows;
 4. level 1, kernel K2 for G1 or K4 for G2 (`kernel_curve.bucket_scan`):
-   per-block running mixed-add chains, written out at segment tails and
-   block ends;
+   per-block running mixed-add chains over all rows and the shared
+   points, written out at segment tails and block ends;
 5. level 2 (`_level2_carries`): the trailers of consecutive blocks that
    one digit spans are combined by a log-depth segmented scan;
 6. extraction: each carry is added into the bucket where its segment
    ends; bucket 0 and the dump slot are dropped;
-7. `_weighted_bucket_sum`: sum_b b * bucket_b per window;
-8. Horner: res = 2^c res + W_w from the top window down.
+7. `_weighted_bucket_sum`: sum_b b * bucket_b per row;
+8. Horner: res = 2^c res + W_w from the top window down, at batch B.
 
 On the card every G1 point addition and doubling is one launch of
-`csrc/point_ops.cu`; every other field product goes through kernel K1.
+`csrc/point_ops.cu` (at batch B in Horner, not B chains); every other
+field product goes through kernel K1.
 
 Each stage is a span of `utils.profiling` (`msm.digits` ... `msm.horner`
-inside `msm.std`); `stage_seconds` collects their device intervals.
+inside `msm.std`); `stage_seconds` collects their device intervals.  The
+counter `msm_scalar_sets` adds B per call (1 for scalars (Wr, N)).
 """
 
 from __future__ import annotations
@@ -186,10 +196,13 @@ class MSM:
         self.nbits = nbits
 
     def digits(self, k_limbs: torch.Tensor, c: int, block: int):
-        """Stages 1-2 for the scalars: signed digits (nwin, n) padded to a
-        multiple of the block with the dump key nbuckets."""
+        """Stages 1-2 for the scalars (Wr, N) or (Wr, B, N): signed digits
+        (nwin, n) or (B nwin, n), row b nwin + w holding window w of
+        scalar vector b, padded to a multiple of the block with the dump
+        key nbuckets."""
         nbuckets = (1 << (c - 1)) + 1
         sdig = signed_digits(digits_from_limbs(k_limbs, c, self.nbits), c)
+        sdig = sdig.movedim(0, -2).reshape(-1, sdig.shape[-1])
         pad = (-sdig.shape[1]) % block
         if pad:
             sdig = torch.cat(
@@ -201,9 +214,14 @@ class MSM:
               stage_seconds: Optional[Dict[str, float]] = None):
         """Stages 1-3: signed digits, padding and the grouping sort.
         Returns (c, nbuckets, (x, y, inf), sd, idx): the padded points and
-        the sorted signed digits with the index of each position's point,
-        which is what kernels K2 and K4 take."""
+        the sorted signed digits (rows as `digits` lays them out) with the
+        index of each position's point, which is what kernels K2 and K4
+        take."""
         n = k_limbs.shape[-1]
+        if k_limbs.ndim not in (2, 3):
+            raise DimensionError(
+                f"scalars of shape {tuple(k_limbs.shape)}, not (Wr, N) or "
+                "(Wr, B, N)")
         if points[0].shape[-1] != n or points[1].shape[-1] != n:
             raise DimensionError(
                 f"incompatible array dimensions: {n} scalars vs "
@@ -226,11 +244,11 @@ class MSM:
 
             # K3 sorts |digit| along each row, carrying the position index
             with prof.span("msm.sort", k_limbs):
-                nwin, npad = sdig.shape
+                rows, npad = sdig.shape
                 pos = torch.arange(npad, dtype=torch.int32,
                                    device=sdig.device)
                 _, (idx,) = sort_key_val(
-                    sdig.abs(), pos.expand(1, nwin, npad).contiguous(),
+                    sdig.abs(), pos.expand(1, rows, npad).contiguous(),
                     nbuckets.bit_length())
                 sd = torch.gather(sdig, 1, idx.long())
         pts = (x.contiguous(), y.contiguous(), inf.contiguous())
@@ -241,35 +259,42 @@ class MSM:
                 stage_seconds: Optional[Dict[str, float]] = None) -> Point:
         """sum_i k_i P_i for canonical standard-rep scalar limbs (Wr, N)
         and affine points (x, y, inf), x and y (W, N) over Fp or
-        (W, 2, N) over Fp2; returns one projective point.
+        (W, 2, N) over Fp2; returns one projective point.  Scalars
+        (Wr, B, N) give the B sums over the same points in one pass, a
+        projective point of batch (B,).
         `stage_seconds`, when given, adds each stage's device interval
         (`STAGES`), the call recording its spans; the card is waited on
         once, after the call."""
         ops = self.ops
+        lead = tuple(k_limbs.shape[1:-1])          # () or (B,)
         with prof.stages(stage_seconds, _STAGE_SPANS), \
                 prof.span("msm.std", k_limbs):
             c, nbuckets, (x, y, inf), sd, idx = self.group(
                 k_limbs, points, c, block)
-            nwin, n = sd.shape
+            sets = math.prod(lead)
+            prof.count("msm_scalar_sets", sets)
+            rows, n = sd.shape
+            nwin = rows // sets
 
             with prof.span("msm.bucket_scan"):
                 buckets, S = bucket_scan(ops, x, y, inf, sd, idx, block,
                                          nbuckets)
 
             with prof.span("msm.level2"):
-                a = sd.abs().view(nwin, n // block, block)
+                a = sd.abs().view(rows, n // block, block)
                 C, cidx = _level2_carries(ops, a[..., 0], a[..., -1], S,
                                           nbuckets)
 
             with prof.span("msm.extraction"):
-                rows = torch.arange(nwin, device=cidx.device)[:, None]
-                fixed = ops.add(tuple(b[..., rows, cidx] for b in buckets), C)
+                ri = torch.arange(rows, device=cidx.device)[:, None]
+                fixed = ops.add(tuple(b[..., ri, cidx] for b in buckets), C)
                 for b, v in zip(buckets, fixed):
-                    b[..., rows, cidx] = v
+                    b[..., ri, cidx] = v
                 buckets = tuple(b[..., 1:nbuckets] for b in buckets)
 
             with prof.span("msm.weighted_sum"):
-                Ws = _weighted_bucket_sum(ops, buckets)
+                Ws = tuple(w.unflatten(-1, lead + (nwin,))
+                           for w in _weighted_bucket_sum(ops, buckets))
 
             with prof.span("msm.horner"):
                 res = tuple(w[..., nwin - 1] for w in Ws)

@@ -10,16 +10,17 @@ tensors on the setup's device.
 
 - `load_setup`: the natural-order Lagrange points [L_i(tau)] G1 (a
   node's `trusted_setup.txt`), bit-reversed once here, with the roots.
-- `blob_to_kzg_commitments`: one G1 `msm_std` (K3, K2, the point
-  kernels) per blob over those points, ONE `to_affine` for the batch.
+- `blob_to_kzg_commitments`: ONE G1 `msm_std` (K3, K2, the point
+  kernels) for the batch over those points, its rows the (blob, window)
+  pairs, the scalars (W, B, n); ONE `to_affine`.
 - `compute_blob_kzg_proofs`: the commitments validated as the spec's
   `bytes_to_kzg_commitment` does (decompression and the subgroup test
   on the device, one wait to read them back); the challenges on the
   host (SHA-256, `compute_challenge`); then for every blob y = p(z) by
   the barycentric formula and the quotient (p_i - y) / (w_i - z), both
   from ONE `batch_inv` of the B n differences z - w_i, q at w_i = z by
-  `compute_quotient_eval_within_domain`; one MSM per blob, one
-  `to_affine`.
+  `compute_quotient_eval_within_domain`; ONE batched MSM of the B
+  quotients, ONE `to_affine`.
 - `compute_kzg_proof`: the same opening at a given z.
 - `prove_blobs`: commitments, then proofs, of a batch.
 
@@ -168,26 +169,24 @@ def compute_challenge(blob, commitment, n: int = FIELD_ELEMENTS_PER_BLOB
 # -- the MSMs --------------------------------------------------------------------
 
 def _msm(setup: BlobSetup, k_std: torch.Tensor) -> Point:
-    """g1_lincomb of the bit-reversed points and standard-form scalars
-    (W, n)."""
+    """g1_lincomb of the bit-reversed points and each blob's standard-form
+    scalars (W, B, n), in one `msm_std`: a point of batch (B,)."""
     return setup.curves.msm("g1").msm_std(
         k_std, setup.lagrange_brp, setup.window_bits, min(512, setup.n))
 
 
-def _to_bytes(setup: BlobSetup, points: List[Point]) -> torch.Tensor:
-    """B projective points -> (B, 48) uint8 through one `to_affine`."""
+def _to_bytes(setup: BlobSetup, points: Point) -> torch.Tensor:
+    """A projective point of batch (B,) -> (B, 48) uint8 through one
+    `to_affine`."""
     ck = setup.curves
-    batch = tuple(torch.stack(c, -1) for c in zip(*points))
-    return ck.g1_to_bytes48(ck.g1.to_affine(batch))
+    return ck.g1_to_bytes48(ck.g1.to_affine(points))
 
 
 def blob_to_kzg_commitments(setup: BlobSetup, blobs: Blobs) -> torch.Tensor:
     """(B, 48) uint8: each blob's blob_to_kzg_commitment."""
     blobs = _blob_tensor(setup, blobs)
     with prof.span("kzg.blob_commit", setup.device):
-        k = _blob_limbs(setup, blobs)
-        return _to_bytes(setup, [_msm(setup, k[:, b])
-                                 for b in range(k.shape[1])])
+        return _to_bytes(setup, _msm(setup, _blob_limbs(setup, blobs)))
 
 
 # -- the opening ---------------------------------------------------------------------
@@ -237,8 +236,7 @@ def _open(setup: BlobSetup, polys: torch.Tensor, pts: _Points
         # q(z) = sum_{j != i} (p_j - y) w_j / (z (z - w_j)) = -sum_j q_j w_j / z
         t = V.sum_mod(fr, fr.mul(q[:, b], setup.roots_brp))
         q[:, b, i] = fr.neg(fr.mul(pts.z_inv[b], t))
-    q_std = fr.from_mont(q)
-    return _to_bytes(setup, [_msm(setup, q_std[:, b]) for b in range(B)]), y
+    return _to_bytes(setup, _msm(setup, fr.from_mont(q))), y
 
 
 def _validated(setup: BlobSetup, cms: torch.Tensor) -> np.ndarray:
