@@ -616,7 +616,8 @@ def counters():
             "bucket_scan2": kernel_curve.bucket_scan2,
             "sort_key_val": kernel_sort.sort_key_val,
             "point_add": kernel_point.point_add,
-            "point_dbl": kernel_point.point_dbl}
+            "point_dbl": kernel_point.point_dbl,
+            "field_pow": kernel_field.field_pow}
 
 
 def reset_counts():
@@ -781,6 +782,83 @@ def phase_point_ops(device, int_rate, log_big=18, reps=200):
                     f"{nops} madds, {nbytes} B)"
                     + ("" if dev_ms is None or n == 1 else
                        f", {100 * b_ms / dev_ms:.1f}% of the bound"))
+    return dict(ptxas=ptxas, timings=rows)
+
+
+def phase_field_pow(device, int_rate, rng, log_big=20):
+    """Kernel P2 (csrc/field_pow.cu): its ptxas report, and the powers the
+    port takes by it on random elements at batch 1 and 2^log_big: the
+    inverse a^(p-2) of BLS12-381 Fp (W = 12) and Fr (W = 8), Fp's square
+    root a^((p+1)/4) and Fr's first Tonelli-Shanks power a^((q-1)/2).
+    P2 must equal the plain version, `field_pow_plain` over
+    `mont_mul_plain` (torch ops on the same tensors), limb for limb, and
+    so must the K1 chain it replaces (the same loop over kernel K1).  P2
+    and the K1 chain are timed by device time (`graph_ms`), by events
+    around the call (host included) and against the bound (the chain's
+    products at 4 W^2 + W multiply-adds each; the element read and
+    written once); the plain loop by the host clock, once.  Returns the
+    ptxas rows and the timings by `<path>_<power>_W<W>_n<batch>`."""
+    import torch
+    from zikkurat_algebra_tpu_torch import params as P
+    from zikkurat_algebra_tpu_torch.ops import kernel_field
+    from zikkurat_algebra_tpu_torch.ops.field import Field
+    from zikkurat_algebra_tpu_torch.utils import build
+
+    ptxas = {}
+    if device.type == "cuda":
+        build.build(["field_pow"])
+        rep = ptxas_report(build.log_path("field_pow").read_text())
+        ptxas = ptxas_rows(rep)
+        log(f"# ptxas field_pow: {ptxas_text(rep)}")
+    rows = {}
+    for prm in (P.BLS12_381_FP, P.BLS12_381_FR):
+        f = Field(prm, device)
+        q, _ = f._two_adic
+        powers = {"inv": f.p - 2}
+        if f.p % 4 == 3:
+            powers["sqrt"] = (f.p + 1) // 4
+        else:
+            powers["ts_first"] = (q - 1) // 2
+        for pname, e in powers.items():
+            nprod = e.bit_length() - 2 + bin(e).count("1")
+            paths = {"p2": lambda x, e=e: kernel_field.field_pow(x, e, f),
+                     "k1_chain": lambda x, e=e: kernel_field.field_pow_plain(
+                         x, e, f, kernel_field.mont_mul)}
+            for n in (1, 1 << log_big):
+                copies = (cold_copies(8 * f.W * n)
+                          if n > 1 and device.type == "cuda" else 1)
+                data = [torch.from_numpy(rand_canonical(rng, f.p, f.W, n)).to(
+                    device) for _ in range(copies)]
+                want, plain_ms = timed(
+                    lambda: kernel_field.field_pow_plain(data[0], e, f),
+                    device)
+                for path, fn in paths.items():
+                    if not torch.equal(fn(data[0]), want):
+                        raise AssertionError(
+                            f"field_pow {path} {pname} W={f.W} n={n} "
+                            "differs from the plain version")
+                reps = 20 if n == 1 else 3
+                nbytes = 8 * f.W * n
+                nops = nprod * (4 * f.W * f.W + f.W) * n
+                b_ms, b_by = bound(nbytes, nops, int_rate)
+                rows[f"plain_{pname}_W{f.W}_n{n}"] = dict(
+                    host_ms=plain_ms, products=nprod)
+                log(f"# field_pow plain {pname} W={f.W} batch {n}: "
+                    f"{plain_ms:.1f} ms (host clock, device synchronised; "
+                    f"{nprod} products); P2 and the K1 chain equal it")
+                for path, fn in paths.items():
+                    ev_ms = time_ms(lambda: fn(data[0]), reps, device)
+                    dev_ms = graph_ms([lambda d=d: fn(d) for d in data], reps,
+                                      device)
+                    rows[f"{path}_{pname}_W{f.W}_n{n}"] = dict(
+                        events_ms=ev_ms, device_ms=dev_ms, bound_ms=b_ms,
+                        bound_by=b_by, products=nprod)
+                    log(f"# field_pow {path} {pname} W={f.W} batch {n}: "
+                        f"device {dev_ms} ms, events {ev_ms:.4f} ms (host "
+                        f"included), bound {b_ms:.4f} ms ({b_by}: {nprod} "
+                        "products)"
+                        + ("" if dev_ms is None or n == 1 else
+                           f", {100 * b_ms / dev_ms:.1f}% of the bound"))
     return dict(ptxas=ptxas, timings=rows)
 
 
@@ -1115,7 +1193,7 @@ def phase_pairing(device, batch, rng):
 
     reset_counts()
     e = call(f"pairing x{batch}", lambda: pk.pairing(Pa, Qa))
-    launches = read_counts(device, "pairing", ("mont_mul",))
+    launches = read_counts(device, "pairing", ("mont_mul", "field_pow"))
     two = lambda A: tuple(t[..., :2] for t in A)
     ps, qs = ck.decode_g1(two(Pa)), ck.decode_g2(two(Qa))
     want = [pk.oracle.pairing(p, q) for p, q in zip(ps, qs)]
@@ -1224,7 +1302,8 @@ def phase_kzg(ck, device, log_n, rng):
                                                        x0, y0))
     launches = read_counts(device, "KZG", ("mont_mul", "bucket_scan",
                                            "sort_key_val", "ntt_stage",
-                                           "point_add", "point_dbl"))
+                                           "point_add", "point_dbl",
+                                           "field_pow"))
     bad_y = kzg.verify_proof(setup, com_p, proof, x0,
                              fr.add(y0, fr.one(())))
     _, proof1 = kzg.opening_proof(setup, coeffs, x1)
@@ -1282,14 +1361,15 @@ def phase_srs(ck, device, log_g1, log_g2, log_sqrt, rng):
     per, times = {}, {}
     total = {}
 
-    def call(name, fn):
+    def call(name, fn, need=("mont_mul",)):
         before = {k: c.launches for k, c in counters().items()}
         out = fn()
         sync(device)
         per[name] = {k: c.launches - before[k] for k, c in counters().items()
                      if c.launches != before[k]}
-        if device.type == "cuda" and not per[name].get("mont_mul"):
-            raise AssertionError(f"{name}: K1 was not launched")
+        for k in need:
+            if device.type == "cuda" and not per[name].get(k):
+                raise AssertionError(f"{name}: {k} was not launched")
         for k, v in per[name].items():
             total[k] = total.get(k, 0) + v
         _, times[name] = timed(fn, device)
@@ -1299,7 +1379,8 @@ def phase_srs(ck, device, log_g1, log_g2, log_sqrt, rng):
         _, _, pts = tiled_seeds(ck, grp, n, device)
         x, flags = comp(pts)
         (xd, yd, infd), valid = call(f"decompress_{grp}",
-                                     lambda: decomp(x, flags))
+                                     lambda: decomp(x, flags),
+                                     ("mont_mul", "field_pow"))
         live = ~pts[2]
         if not (bool(valid.all()) and torch.equal(infd, pts[2])
                 and all(torch.equal(u[..., live], v[..., live])
@@ -1351,7 +1432,8 @@ def phase_srs(ck, device, log_g1, log_g2, log_sqrt, rng):
     for f in (ck.fp, ck.fr):
         a = torch.from_numpy(rand_canonical(rng, f.p, f.W, n)).to(device)
         sq = f.sqr(a)
-        root, ok = call(f"sqrt {f.params.name}", lambda: f.sqrt(sq))
+        root, ok = call(f"sqrt {f.params.name}", lambda: f.sqrt(sq),
+                        ("mont_mul", "field_pow"))
         if not (bool(ok.all()) and torch.equal(f.sqr(root), sq)):
             raise AssertionError(f"sqrt {f.params.name}: a root squared is "
                                  "not the square")
@@ -1701,7 +1783,8 @@ def phase_parallel(device, log_n, gfft_log_n, block, rng):
                            G):
                 raise AssertionError("ShardedGroupFFT differs from GroupFFT")
             launches = read_counts(device, "sharded", (
-                "mont_mul", "bucket_scan", "sort_key_val", "ntt_stage"), per)
+                "mont_mul", "bucket_scan", "sort_key_val", "ntt_stage",
+                "field_pow"), per)
         finally:
             dist.destroy_process_group()
     log(f"# sharded ({backend}, a world of 1 on one card: the code path and "
@@ -1758,7 +1841,7 @@ def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
         pairing_batch: int = 1024, kzg_log_n: int = 12,
         bigint_log_n: int = 20, api_g2_log_n: int = 16,
         trace_log_n: int = 16, sharded_gfft_log_n: int = 10,
-        point_log_n: int = 18):
+        point_log_n: int = 18, pow_log_n: int = 20):
     import torch
     from zikkurat_algebra_tpu_torch import params as P
     from zikkurat_algebra_tpu_torch.ops.curve import CurveKernels
@@ -1794,7 +1877,7 @@ def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
                                       device, block, sms, windows=(0, -1))
     launches = {"g2": phase_msm(ck, "g2", k_np, pts, seeds, nseed, device,
                                 block, ("mont_mul", "sort_key_val",
-                                        "bucket_scan2"))}
+                                        "bucket_scan2", "field_pow"))}
 
     # the G1 path
     seeds, nseed, pts = tiled_seeds(ck, "g1", n, device)
@@ -1804,8 +1887,9 @@ def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
     launches["g1"] = phase_msm(ck, "g1", k_np, pts, seeds, nseed, device,
                                block, ("mont_mul", "sort_key_val",
                                        "bucket_scan", "point_add",
-                                       "point_dbl"))
+                                       "point_dbl", "field_pow"))
     point_ops = phase_point_ops(device, int_rate, point_log_n)
+    field_pow = phase_field_pow(device, int_rate, rng, pow_log_n)
 
     # the SRS path: decompression, subgroup checks, square roots
     launches["srs"], meas["mont_mul"]["srs_path"] = phase_srs(
@@ -1858,6 +1942,13 @@ def run(device_name: str = "cuda", log_n: int = 20, k1_log_n: int = 20,
         launches_by_path={p: {k: v[k] for k in point}
                           for p, v in launches.items()},
         **point_ops)}))
+    print(json.dumps({"field_pow": dict(
+        source="zikkurat_algebra_tpu_torch/csrc/field_pow.cu",
+        replaces="the K1 chain of Field.pow_bits "
+                 "(zikkurat_algebra_tpu_torch/ops/field.py)",
+        launches=sum(v["field_pow"] for v in launches.values()),
+        launches_by_path={p: v["field_pow"] for p, v in launches.items()},
+        **field_pow)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu" if device.type == "cuda" else "cpu",
         "kind": (torch.cuda.get_device_name(0) if device.type == "cuda"

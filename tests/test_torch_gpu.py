@@ -1,7 +1,8 @@
-"""Kernels K1 to K5 on the card against their plain torch versions (K2
-and K4 as points, after `to_affine`; the others limb for limb; K1 at
-every width it takes, K5 at W = 8 and 2, one stage and every pass of
-stages a tile holds), small G1 and G2 MSMs and NTTs
+"""Kernels K1 to K5 and P2 on the card against their plain torch versions
+(K2 and K4 as points, after `to_affine`; the others limb for limb; K1 and
+P2 at every width they take, K5 at W = 8 and 2, one stage and every pass
+of stages a tile holds), P2's launches in an affine conversion and in a
+blob operation, small G1 and G2 MSMs and NTTs
 and the G1 decompression and subgroup test on the card against the
 oracle, and the pairing and KZG on the card against the port on the CPU.
 
@@ -126,6 +127,84 @@ def test_mont_mul_kernel_widths(cuda_device, name):
     assert torch.equal(got, kernel_field.mont_mul_plain(a, b, f))
     assert lb.limbs_to_ints(got) == [x * y * f.R_inv % f.p
                                      for x, y in zip(vals, vals[::-1])]
+
+
+# one field per width of KERNEL_WIDTHS: W = 1, 2, 3, 4, 8, 12
+POW_FIELDS = [P.TEST_PRIMES["M31"], P.TEST_PRIMES["goldilocks"],
+              P.TEST_PRIMES["P64+"], P.TEST_PRIMES["M127"], P.BLS12_381_FR,
+              P.BLS12_381_FP]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("params", POW_FIELDS, ids=lambda p: p.name)
+def test_field_pow_kernel_vs_plain(cuda_device, params):
+    """P2 equals its plain version (the square-and-multiply loop over the
+    plain product) limb for limb at every width, for batches of 1, 6 and
+    4097 (0 and 1 first), on the exponents 0, 1, 2, p - 2, (p + 1) / 4
+    and one longer than a launch's parameter block (two launches)."""
+    f = Field(params, device=cuda_device)
+    rng = np.random.default_rng(f.W + 40)
+    vals = corner_values(f.p, f.W)
+    vals += [(int(v) << 62 | int(w)) % f.p for v, w in
+             rng.integers(0, 1 << 62, (4097 - len(vals), 2))]
+    a = f.encode(vals)
+    block = 32 * kernel_field.POW_WORDS
+    long_e = 1 << block + 40 | int(rng.integers(1, 1 << 62))
+    for e in (0, 1, 2, f.p - 2, (f.p + 1) // 4, long_e):
+        want = kernel_field.field_pow_plain(a, e, f)
+        for n in (1, 6, 4097):
+            before = kernel_field.field_pow.launches
+            got = kernel_field.field_pow(a[:, :n].contiguous(), e, f)
+            torch.cuda.synchronize()
+            assert kernel_field.field_pow.launches == before + 1 + (
+                e == long_e)
+            assert torch.equal(got, want[:, :n]), (e, n)
+        assert f.decode(want[:, :8]) == [pow(v, e, f.p) for v in vals[:8]]
+
+
+@pytest.mark.gpu
+def test_field_pow_launch_counts_on_card(cuda_device):
+    """A batch-1 G1 to_affine launches P2 once and K1 at most 3 times.
+    One blob operation of the benchmark's cell (prove_blobs of 6 blobs of
+    4096 elements over the frozen setup) launches P2 4 times (two affine
+    conversions, the decompression's square root, the opening's
+    inversion) and K1 at most 100 times, and its bytes equal
+    zkbench/eip4844.py."""
+    import json
+    from pathlib import Path
+
+    from zkbench import eip4844 as ref, inputs
+    from zikkurat_algebra_tpu_torch.protocols import eip4844
+    from zikkurat_algebra_tpu_torch.utils import profiling
+
+    ck = CurveKernels(P.BLS12_381, device=cuda_device)
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "zkbench" / "configs" /
+                      "bls12_381-kzg-blob4096.json").read_text())
+    srs = inputs.load_srs(root, cfg)
+    setup = eip4844.load_setup(srs["lagrange_g1"], device=cuda_device)
+    rng = random.Random(71)
+    blobs = [ref.polynomial_to_blob([rng.randrange(ck.fr.p)
+                                     for _ in range(setup.n)])
+             for _ in range(6)]
+    eip4844.prove_blobs(setup, blobs[:1])               # warm
+    outs, tots = [], []
+    for fn in (lambda: ck.g1.to_affine(ck.generator(1)),
+               lambda: eip4844.prove_blobs(setup, blobs)):
+        profiling.reset()
+        with profiling.recording():
+            outs.append(fn())
+        tots.append(profiling.totals())
+        profiling.reset()
+    (aff, (cms, proofs)), affine = outs, tots[0]["curve.to_affine"]
+    op = tots[1]["kzg.blob_prove"]["launches"]
+    assert ck.decode_g1(aff) == [ck.oracle_g1.gen]
+    assert affine["calls"] == 1 and affine["launches"]["field_pow"] == 1
+    assert affine["launches"]["mont_mul"] <= 3, affine
+    assert op["field_pow"] == 4 and op["mont_mul"] <= 100, op
+    prover = ref.Prover(srs["tau"], setup.n)
+    assert [(bytes(c.cpu().numpy()), bytes(p.cpu().numpy()))
+            for c, p in zip(cms, proofs)] == [prover.prove(b) for b in blobs]
 
 
 @pytest.mark.gpu

@@ -310,7 +310,7 @@ def test_span_launch_deltas_add_up(monkeypatch):
         kernel_field.mont_mul, kernel_curve.bucket_scan,
         kernel_sort.sort_key_val, kernel_ntt.ntt_stages,
         kernel_curve.bucket_scan2, kernel_point.point_add,
-        kernel_point.point_dbl)))
+        kernel_point.point_dbl, kernel_field.field_pow)))
     assert list(kernels) == list(profiling.LAUNCHES)
     for fn in kernels.values():
         monkeypatch.setattr(fn, "launches", fn.launches)
@@ -328,12 +328,12 @@ def test_span_launch_deltas_add_up(monkeypatch):
             bump(sort_key_val=1)
             with profiling.span("outer.b"):
                 bump(ntt_stages=2, bucket_scan2=1, mont_mul=1, point_add=3,
-                     point_dbl=5)
+                     point_dbl=5, field_pow=1)
     tot = profiling.totals()
     change = {n: fn.launches - before[n] for n, fn in kernels.items()}
     assert tot["outer"]["launches"] == change == dict(
         mont_mul=4, bucket_scan=1, sort_key_val=1, ntt_stages=2,
-        bucket_scan2=1, point_add=3, point_dbl=5)
+        bucket_scan2=1, point_add=3, point_dbl=5, field_pow=1)
     a, b = tot["outer.a"]["launches"], tot["outer.b"]["launches"]
     assert {n: a[n] + b[n] for n in change} == dict(change, sort_key_val=0)
     assert tot["outer"]["calls"] == 1

@@ -9,10 +9,13 @@ kernel K1 for CUDA tensors, its plain version for CPU tensors.
 package does.
 
 Exponents (`pow_bits`, `pow_static`, `inv`, `sqrt`) are public host
-integers, so their square-and-multiply chains branch on the host and
-never read the device; data-dependent choices (Tonelli-Shanks' levels)
-are device selects.  The constants they use are device tensors built
-once per field (`const` keeps every constant it has built).
+integers.  `pow_static` runs a whole square-and-multiply chain through
+`kernel_field.field_pow`: ONE launch of kernel P2 for CUDA tensors (per
+512 exponent bits), its plain loop over the plain product for CPU
+tensors; the exponent's bits are the kernel's parameters, so nothing is
+read back from the device.  Data-dependent choices (Tonelli-Shanks'
+levels) are device selects.  The constants they use are device tensors
+built once per field (`const` keeps every constant it has built).
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ class Field:
         self.one_limbs = t(self.R % self.p, self.W)
         self.r2_limbs = t(self.R * self.R % self.p, self.W)
         self._mont_mul = kernel_field.mont_mul
+        self._pow = kernel_field.field_pow
         self._consts: Dict[int, torch.Tensor] = {}
         # the reference C's Montgomery R = 2^(64 ceil(bits / 64)), the R of
         # export_ref_mont / import_ref_mont; it differs from R for odd W
@@ -81,6 +85,7 @@ class Field:
         version, on any device (the reference the kernels are held to)."""
         g = copy.copy(self)
         g._mont_mul = kernel_field.mont_mul_plain
+        g._pow = kernel_field.field_pow_plain
         return g
 
     @property
@@ -214,26 +219,17 @@ class Field:
     # -- exponentiation ------------------------------------------------------
     def pow_bits(self, a, bits):
         """a^e for e given by its little-endian bits on the host (a
-        sequence or numpy array of 0/1; field.py:325).  MSB-first
-        square-and-multiply; the bits choose which products are launched,
-        so nothing is read back from the device."""
-        bits = np.asarray(bits).reshape(-1)
-        nz = np.flatnonzero(bits)
-        if nz.size == 0:
-            return self.one(a.shape[1:]).contiguous()
-        a = a.contiguous()
-        acc = a
-        for i in range(int(nz[-1]) - 1, -1, -1):
-            acc = self.sqr(acc)
-            if bits[i]:
-                acc = self.mul(acc, a)
-        return acc
+        sequence or numpy array of 0/1; field.py:325)."""
+        return self.pow_static(a, sum(1 << int(i) for i in
+                                      np.flatnonzero(np.asarray(bits))))
 
     def pow_static(self, a, e: int):
-        """a^e for a host int e; a negative e inverts first."""
+        """a^e for a host int e, a negative e inverting first: MSB-first
+        square-and-multiply in `kernel_field.field_pow`, one launch of
+        kernel P2 on the card."""
         if e < 0:
             return self.pow_static(self.inv(a), -e)
-        return self.pow_bits(a, int_to_bits(e))
+        return self._pow(a.contiguous(), e, self)
 
     def div(self, a, b):
         return self.mul(a, self.inv(b))

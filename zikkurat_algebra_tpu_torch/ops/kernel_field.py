@@ -1,4 +1,5 @@
-"""Kernel K1: the elementwise Montgomery product, and its plain version.
+"""Kernels K1 and P2: the elementwise Montgomery product and a field
+exponentiation in one launch, and their plain versions.
 
 `mont_mul(a, b, f)` computes a * b * R^-1 mod p on (W, *batch) limb
 planes and gives canonical output limbs; b must be canonical, a any value
@@ -18,12 +19,19 @@ a convolution of 16-bit digits (each column sum fits int64), followed by
 one bulk Montgomery reduction m = (T mod R) * (-p^-1) mod R,
 U = (T + m p) / R and one conditional subtraction.  A canonical result is
 unique, so it equals the kernel's limb for limb.
+
+`field_pow(a, e, f)` computes a^e for an exponent e, a host int.  On a
+CUDA tensor it launches `csrc/field_pow.cu` (kernel P2: the whole
+square-and-multiply chain in registers, one launch per `POW_WORDS` words
+of exponent), with the same checks as `mont_mul`; on a CPU tensor it runs `field_pow_plain`, the square-and-multiply loop over
+`mont_mul_plain`, which the kernel equals limb for limb.
 """
 
 from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import List, Tuple
 
 import torch
 
@@ -139,3 +147,90 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, f) -> torch.Tensor:
 
 
 mont_mul.launches = 0
+
+
+# -- exponentiation ------------------------------------------------------------
+
+POW_WORDS = 16          # exponent words per P2 launch (kPowWords in the .cu)
+_POW_ARGTYPES = [ctypes.c_void_p] * 6 + [
+    ctypes.c_int, ctypes.c_uint32, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_void_p,
+]
+
+
+def field_pow_plain(a: torch.Tensor, e: int, f, mul=mont_mul_plain
+                    ) -> torch.Tensor:
+    """a^e on (W, *batch) limb planes for a host int e >= 0: MSB-first
+    square-and-multiply, one `mul` (by default `mont_mul_plain`, on any
+    device) per squaring and product; a^0 = 1, and a^1 is a itself."""
+    if e == 0:
+        return f.one(a.shape[1:]).contiguous()
+    acc = a
+    for i in range(e.bit_length() - 2, -1, -1):
+        acc = mul(acc, acc, f)
+        if e >> i & 1:
+            acc = mul(acc, a, f)
+    return acc
+
+
+@lru_cache(maxsize=None)
+def _pow_consts(p: int, W: int) -> tuple:
+    """(p, R mod p) as host words, R = 2^(32 W)."""
+    return lb.host_words(p, W), lb.host_words((1 << 32 * W) % p, W)
+
+
+def _pow_chunks(e: int) -> List[Tuple[int, ctypes.Array]]:
+    """The exponent e >= 0 as P2's launches, top chunk first: (bit count,
+    host words).  Chunks of 32 POW_WORDS bits from the least significant
+    bit up; the top chunk holds the rest, ending at the top set bit (0
+    bits for e = 0)."""
+    size = 32 * POW_WORDS
+    nchunks = max(1, -(-e.bit_length() // size))
+    out = []
+    for j in range(nchunks - 1, -1, -1):
+        chunk = (e >> (j * size)) & ((1 << size) - 1)
+        nbits = chunk.bit_length() if j == nchunks - 1 else size
+        out.append((nbits, lb.host_words(chunk, POW_WORDS)))
+    return out
+
+
+def field_pow(a: torch.Tensor, e: int, f) -> torch.Tensor:
+    """a^e on (W, *batch) int32 limb planes of field `f` for a host int
+    e >= 0.  CUDA tensors launch kernel P2 once
+    per `POW_WORDS` words of e; CPU tensors run `field_pow_plain`."""
+    if a.ndim < 1 or a.shape[0] != f.W:
+        raise ValueError(f"field_pow: shape {tuple(a.shape)} for W={f.W}")
+    if a.dtype != torch.int32:
+        raise TypeError("field_pow takes int32 limb planes")
+    if a.device != f.device:
+        raise ValueError(f"field_pow: device {a.device} for a field on "
+                         f"{f.device}")
+    if a.device.type == "cpu":
+        return field_pow_plain(a, e, f)
+    if a.device.type != "cuda":
+        raise ValueError(f"field_pow: no kernel for device {a.device}")
+    if not a.is_contiguous():
+        raise ValueError("field_pow: limb planes must be contiguous")
+    if f.W not in KERNEL_WIDTHS:
+        raise ValueError(f"field_pow: no kernel for W={f.W} (widths "
+                         f"{KERNEL_WIDTHS})")
+    n = a.numel() // f.W
+    if n == 0:
+        return torch.empty_like(a)
+    fn = build.load("field_pow", "zk_field_pow", _POW_ARGTYPES)
+    p, one = _pow_consts(f.p, f.W)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    acc = None
+    for nbits, words in _pow_chunks(e):
+        out = torch.empty_like(a)
+        rc = fn(a.data_ptr(), None if acc is None else acc.data_ptr(),
+                out.data_ptr(), p, one, words, nbits, f.n0, f.W, n, stream)
+        if rc != 0:
+            raise RuntimeError(f"field_pow kernel launch failed: cudaError "
+                               f"{rc}")
+        field_pow.launches += 1
+        acc = out
+    return acc
+
+
+field_pow.launches = 0

@@ -48,7 +48,7 @@ import torch.autograd.profiler as _ap
 TRACE_FILE = "trace.json"
 # the port's exact launch counters (`<kernel wrapper>.launches`)
 LAUNCHES = ("mont_mul", "bucket_scan", "sort_key_val", "ntt_stages",
-            "bucket_scan2", "point_add", "point_dbl")
+            "bucket_scan2", "point_add", "point_dbl", "field_pow")
 MAX_RECORDS = 1 << 16       # records kept for `records()`
 MAX_PENDING = 1 << 12       # unresolved CUDA spans before a sweep
 
@@ -185,7 +185,7 @@ def _launch_counts() -> tuple:
         _counters = (kernel_field.mont_mul, kernel_curve.bucket_scan,
                      kernel_sort.sort_key_val, kernel_ntt.ntt_stages,
                      kernel_curve.bucket_scan2, kernel_point.point_add,
-                     kernel_point.point_dbl)
+                     kernel_point.point_dbl, kernel_field.field_pow)
     return tuple(k.launches for k in _counters)
 
 
